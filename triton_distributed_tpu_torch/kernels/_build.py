@@ -1,0 +1,187 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into an
+object file (all files at once, in parallel), and the objects are linked
+into ONE shared library with a plain C interface, loaded with ``ctypes``.
+No source includes PyTorch's headers, so a build takes seconds.
+
+The build runs at first use, never at import, into ``build/torch_kernels/``
+beside the package (listed in ``.gitignore``). The library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+A failed build raises with nvcc's output.
+
+C interface conventions (shared by every ``csrc`` file): pointers and the
+CUDA stream are ``void*`` (declared ``c_void_p`` here, so a 64-bit address
+is never cut to 32 bits), sizes and strides are ``long long``, and each
+entry point returns the ``cudaError_t`` of ``cudaGetLastError()`` right
+after its launch; ``check`` raises when it is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+P, I64, I32, F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float)
+
+# C entry points: name -> argtypes (restype is always int = cudaError_t).
+SIGNATURES = {
+    # a, b, c, M, N, K, dtype (0 fp32, 1 bf16), stream
+    "tdt_matmul": [P, P, P, I64, I64, I64, I32, P],
+    # q, k, v, o, rows (nullable (3, B) int32: offset, kv_len, q_len),
+    # offset, kv_len, q_len, B, L, Hq, Hkv, S, dh,
+    # k batch/seq/head strides, scale, dtype, stream
+    "tdt_flash_prefill": [P, P, P, P, P, I32, I32, I32,
+                          I64, I64, I64, I64, I64, I64,
+                          I64, I64, I64, F32, I32, P],
+    # q, k, v, out, lse, kv_lens (nullable (B,) int32), kv_len,
+    # B, Hq, Hkv, S, dh, k batch/seq/head strides, scale, dtype, stream
+    "tdt_flash_decode": [P, P, P, P, P, P, I32,
+                         I64, I64, I64, I64, I64, I64, I64, I64, F32, I32,
+                         P],
+}
+
+
+BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from csrc/ at first use")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` (one nvcc per file, all started together)
+    and link them into one library. Returns its path; raises on failure."""
+    srcs = sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libtdt_torch_{_digest(srcs)}.so"
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():
+            return lib
+        nvcc = nvcc_path()
+        procs = []
+        for src in srcs:
+            obj = BUILD_DIR / (src.stem + ".o")
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC),
+                   "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors, objs = [], []
+        for src, obj, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"--- {src.name} (rc {proc.returncode})\n{out}")
+            objs.append(str(obj))
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        tmp = lib.with_suffix(".tmp.so")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp, lib)
+    return lib
+
+
+class _Library:
+    """The loaded kernel library, built and opened on first ``get()``."""
+
+    def __init__(self):
+        self._lib = None
+
+    def get(self):
+        if self._lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
+
+
+_LIBRARY = _Library()
+
+
+def lib():
+    return _LIBRARY.get()
+
+
+def check(err: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
+                           f"{err}")
+
+
+def stream_ptr(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class Kernel:
+    """One hand-written kernel of the port: where its source is, which TPU
+    kernel it replaces, and how many times its wrapper launched it. The
+    count is a plain int that only the wrapper's launch adds to; a run
+    resets it to 0 before the path it wants to check (``reset_counts``)."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name, self.source, self.replaces = name, source, replaces
+        self.route = "cuda"
+        self.launches = 0
+
+
+KERNELS: dict[str, Kernel] = {}
+
+
+def register(name: str, source: str, replaces: str) -> Kernel:
+    KERNELS[name] = Kernel(name, source, replaces)
+    return KERNELS[name]
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
+                        f"{t.dtype}") from None

@@ -1,0 +1,5 @@
+"""Model layers of the port (counterpart of ``triton_distributed_tpu.layers``)."""
+
+from triton_distributed_tpu_torch.layers import nn  # noqa: F401
+from triton_distributed_tpu_torch.layers.tp_attn import TPAttn  # noqa: F401
+from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP  # noqa: F401

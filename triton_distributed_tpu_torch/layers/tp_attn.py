@@ -1,0 +1,105 @@
+"""GQA attention at world 1.
+
+Counterpart of ``triton_distributed_tpu/layers/tp_attn.py`` (``TPAttn``):
+
+  ``dist_fwd`` - AG-GEMM(x, w_qkv) -> q/k RMSNorm, RoPE, cache write ->
+                 flash attention -> GEMM-RS(out, w_o); at world 1 the
+                 projections are the single-card matmul kernel and the
+                 attention is the flash prefill / flash decode kernel.
+  ``xla_fwd``  - the golden: ``torch.matmul`` projections and the dense
+                 attention (``use_flash_decode=False``).
+
+The fused ``w_qkv`` keeps the JAX layout: (d_model, (Hq + 2*Hkv) * dh),
+[q | k | v] inside each rank's shard, which at world 1 is the plain
+concatenation. The contiguous cache is written in
+place (the JAX layer returns new cache arrays that XLA writes in place
+through donation). The paged-pool branch and the all-reduce mode come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from triton_distributed_tpu_torch.kernels.allgather_gemm import ag_gemm_device
+from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
+    gemm_rs_device,
+)
+from triton_distributed_tpu_torch.layers import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class TPAttn:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 1e6
+    rope_scaling: tuple | None = None
+    qk_norm: bool = True
+    rms_eps: float = 1e-6
+
+    def sizes(self):
+        """(q_size, kv_size)."""
+        return self.n_heads * self.head_dim, self.n_kv_heads * self.head_dim
+
+    @staticmethod
+    def pack_qkv(wq, wk, wv):
+        """Fuse (..., d, Hq*dh), (..., d, Hkv*dh), (..., d, Hkv*dh) into
+        (..., d, q|k|v)."""
+        return torch.cat([wq, wk, wv], dim=-1)
+
+    def unpack_qkv(self, w_qkv):
+        """Inverse of ``pack_qkv`` -> (wq, wk, wv)."""
+        qs, kvs = self.sizes()
+        return torch.split(w_qkv, [qs, kvs, kvs], dim=-1)
+
+    def _qkv_to_attn(self, params, qkv, k_cache, v_cache, offset: int, *,
+                     use_flash_decode: bool = True):
+        """qkv (B, L, q_size + 2*kv_size) -> attention output (B, L, q_size).
+
+        In order: q/k RMSNorm over head_dim (f32 weights), RoPE at positions
+        ``offset + arange(L)``, the in-place cache write, then GQA attention
+        with ``scale = head_dim ** -0.5`` (q head h reads kv head h // g)."""
+        B, L, _ = qkv.shape
+        qs, kvs = self.sizes()
+        dh = self.head_dim
+        q = qkv[..., :qs].reshape(B, L, -1, dh)
+        k = qkv[..., qs:qs + kvs].reshape(B, L, -1, dh)
+        v = qkv[..., qs + kvs:].reshape(B, L, -1, dh)
+        if self.qk_norm:
+            q = nn.rms_norm(q, params["q_norm"], self.rms_eps)
+            k = nn.rms_norm(k, params["k_norm"], self.rms_eps)
+        positions = offset + torch.arange(L, device=qkv.device)[None]
+        cos, sin = nn.rope_angles(positions, dh, self.rope_theta,
+                                  self.rope_scaling)
+        q = nn.apply_rope(q, cos, sin)
+        k = nn.apply_rope(k, cos, sin)
+        nn.cache_update(k_cache, k, offset)
+        nn.cache_update(v_cache, v, offset)
+        out = nn.attn_with_cache(q, k_cache, v_cache, offset,
+                                 scale=dh ** -0.5,
+                                 use_flash_decode=use_flash_decode)
+        return out.reshape(B, L, qs)
+
+    def dist_fwd(self, params, x, k_cache, v_cache, offset: int):
+        """x: (B, L, d) -> (B, L, d); the layer's k/v caches (B, S, Hkv, dh)
+        are written in place at ``[offset, offset + L)``."""
+        B, L, d = x.shape
+        qkv = ag_gemm_device(x.reshape(B * L, d),
+                             params["w_qkv"]).reshape(B, L, -1)
+        out = self._qkv_to_attn(params, qkv, k_cache, v_cache, offset)
+        return gemm_rs_device(out.reshape(B * L, -1),
+                              params["w_o"]).reshape(B, L, d)
+
+    def xla_fwd(self, params, x, k_cache, v_cache, offset: int):
+        """Golden: ``torch.matmul`` projections and dense attention."""
+        B, L, d = x.shape
+        qkv = torch.matmul(x.reshape(B * L, d),
+                           params["w_qkv"]).reshape(B, L, -1)
+        out = self._qkv_to_attn(params, qkv, k_cache, v_cache, offset,
+                                use_flash_decode=False)
+        return torch.matmul(out.reshape(B * L, -1),
+                            params["w_o"]).reshape(B, L, d)

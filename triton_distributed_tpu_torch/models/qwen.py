@@ -1,0 +1,168 @@
+"""Qwen3 decoder stack (dense family) at world 1.
+
+Counterpart of ``triton_distributed_tpu/models/qwen.py`` (``Qwen3``). The
+parameters keep the JAX package's layout: a dict whose per-layer leaves are
+stacked along a leading ``n_layers`` dim, matrices stored (in, out),
+``w_qkv`` packed [q | k | v], ``w_gate_up`` packed [gate | up], f32 norms,
+and no ``lm_head`` when embeddings are tied. ``params_from_jax`` carries a
+JAX parameter tree (as numpy arrays) over unchanged, so both frameworks can
+run the same weights.
+
+The JAX stack walks the layers with ``lax.scan``; here a Python loop walks
+them, and each layer writes its slice of the KV cache in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from triton_distributed_tpu_torch.layers import nn
+from triton_distributed_tpu_torch.layers.tp_attn import TPAttn
+from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
+from triton_distributed_tpu_torch.models.config import ModelConfig
+
+_MOE_TODO = ("MoE configs (n_experts > 0) are not ported yet: ROADMAP.md, "
+             "Queue 1, MoE")
+
+
+def _check_dense(config: ModelConfig) -> None:
+    if config.n_experts:
+        raise NotImplementedError(_MOE_TODO)
+
+
+def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
+    """The weight carrier: turn a JAX ``Qwen3.init``/``load_hf`` parameter
+    tree (nested dicts of numpy arrays, or of anything ``numpy.asarray``
+    takes) into the port's parameter dict on ``device`` (default CPU).
+    Matrices take ``config.dtype``; norms stay f32."""
+    import numpy as np
+
+    _check_dense(config)
+
+    def conv(x, dtype):
+        arr = np.asarray(x)
+        if arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16":
+            # numpy has no bfloat16: ml_dtypes arrays go through float32
+            arr = arr.astype(np.float32)
+        return torch.from_numpy(np.array(arr)).to(device=device,
+                                                  dtype=dtype)
+
+    mat, vec = config.dtype, torch.float32
+    layers = tree["layers"]
+    attn = {"w_qkv": conv(layers["attn"]["w_qkv"], mat),
+            "w_o": conv(layers["attn"]["w_o"], mat)}
+    if config.qk_norm:
+        attn["q_norm"] = conv(layers["attn"]["q_norm"], vec)
+        attn["k_norm"] = conv(layers["attn"]["k_norm"], vec)
+    params = {
+        "embed": conv(tree["embed"], mat),
+        "final_norm": conv(tree["final_norm"], vec),
+        "layers": {
+            "input_norm": conv(layers["input_norm"], vec),
+            "post_norm": conv(layers["post_norm"], vec),
+            "attn": attn,
+            "mlp": {"w_gate_up": conv(layers["mlp"]["w_gate_up"], mat),
+                    "w_down": conv(layers["mlp"]["w_down"], mat)},
+        },
+    }
+    if not config.tie_embeddings:
+        params["lm_head"] = conv(tree["lm_head"], mat)
+    return params
+
+
+@dataclasses.dataclass(frozen=True)
+class Qwen3:
+    config: ModelConfig
+
+    @property
+    def attn(self) -> TPAttn:
+        c = self.config
+        return TPAttn(d_model=c.d_model, n_heads=c.n_heads,
+                      n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
+                      rope_theta=c.rope_theta, rope_scaling=c.rope_scaling,
+                      qk_norm=c.qk_norm, rms_eps=c.rms_eps)
+
+    @property
+    def mlp(self) -> TPMLP:
+        _check_dense(self.config)
+        return TPMLP(d_model=self.config.d_model, d_ff=self.config.d_ff)
+
+    def init(self, seed: int, device) -> dict:
+        """Random parameters made on ``device`` from ``seed`` with a
+        ``torch.Generator`` (normal, scaled by fan_in ** -0.5, in the
+        config's dtype; norms are ones), in the JAX layout. The draws differ
+        from JAX's ``Qwen3.init``; tests carry JAX weights over with
+        ``params_from_jax`` instead."""
+        c = self.config
+        _check_dense(c)
+        device = torch.device(device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        L, d, dh = c.n_layers, c.d_model, c.head_dim
+
+        def randw(shape, fan_in):
+            w = torch.randn(shape, generator=gen, device=device,
+                            dtype=c.dtype)
+            return w.mul_(fan_in ** -0.5)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=torch.float32, device=device)
+
+        w_qkv = TPAttn.pack_qkv(randw((L, d, c.n_heads * dh), d),
+                                randw((L, d, c.n_kv_heads * dh), d),
+                                randw((L, d, c.n_kv_heads * dh), d))
+        w_gate_up = TPMLP.interleave_gate_up(randw((L, d, c.d_ff), d),
+                                             randw((L, d, c.d_ff), d))
+        layer_attn = {"w_qkv": w_qkv,
+                      "w_o": randw((L, c.n_heads * dh, d), c.n_heads * dh)}
+        if c.qk_norm:
+            layer_attn["q_norm"] = ones(L, dh)
+            layer_attn["k_norm"] = ones(L, dh)
+        params = {
+            "embed": randw((c.vocab_size, d), d),
+            "final_norm": ones(d),
+            "layers": {
+                "input_norm": ones(L, d),
+                "post_norm": ones(L, d),
+                "attn": layer_attn,
+                "mlp": {"w_gate_up": w_gate_up,
+                        "w_down": randw((L, c.d_ff, d), c.d_ff)},
+            },
+        }
+        if not c.tie_embeddings:
+            params["lm_head"] = randw((d, c.vocab_size), d)
+        return params
+
+    def forward(self, params, ids, k_cache, v_cache, offset: int, *,
+                mode: str = "dist") -> torch.Tensor:
+        """One forward step. ids: (B, L) int; k/v_cache: (n_layers, B, S,
+        Hkv, dh), written in place at ``[offset, offset + L)``. Returns the
+        logits (B, vocab) f32 at the last position."""
+        c = self.config
+        _check_dense(c)
+        if mode not in ("dist", "xla"):
+            raise ValueError(f"unknown mode {mode!r} (ported: 'dist', 'xla'; "
+                             f"'ar' waits for the allreduce kernel)")
+        attn, mlp = self.attn, self.mlp
+        lp = params["layers"]
+        h = params["embed"][ids.long()]                       # (B, L, d)
+        for i in range(c.n_layers):
+            la = {k: v[i] for k, v in lp["attn"].items()}
+            lm = {k: v[i] for k, v in lp["mlp"].items()}
+            resid = h
+            hn = nn.rms_norm(h, lp["input_norm"][i], c.rms_eps)
+            fwd = attn.dist_fwd if mode == "dist" else attn.xla_fwd
+            h = resid + fwd(la, hn, k_cache[i], v_cache[i], offset)
+            resid = h
+            flat = nn.rms_norm(h, lp["post_norm"][i],
+                               c.rms_eps).reshape(-1, c.d_model)
+            m = (mlp.dist_fwd(lm, flat) if mode == "dist"
+                 else mlp.xla_fwd(lm, flat))
+            h = resid + m.reshape(h.shape)
+        last = nn.rms_norm(h[:, -1], params["final_norm"], c.rms_eps)
+        lm_head = (params["embed"].T if c.tie_embeddings
+                   else params["lm_head"])
+        # Operands in their stored dtype, products summed in f32: the JAX
+        # dot with preferred_element_type=f32.
+        return torch.matmul(last.float(), lm_head.float())
