@@ -6,13 +6,18 @@ machine with an H100 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 Tolerances: bf16 output ``atol=rtol=2e-2``; fp32 output ``atol=rtol=1e-4``
 (the kernel sums in another order than the plain version)."""
 
+import math
+
+import numpy as np
 import pytest
 import torch
 
-from triton_distributed_tpu_torch import Engine, ModelConfig
+from triton_distributed_tpu_torch import BatchEngine, Engine, ModelConfig
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+from triton_distributed_tpu_torch.kernels import paged_attention as tpa
 from triton_distributed_tpu_torch.kernels import sp_attention as tsp
+from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
 
 pytestmark = pytest.mark.gpu
 
@@ -103,5 +108,160 @@ def test_engine_dist_matches_xla_on_card(cuda):
     xla = Engine(cfg, mode="xla", device=cuda, params=dist.params)
     _build.reset_counts()
     got = dist.serve(ids, 6)
-    assert all(k.launches > 0 for k in _build.KERNELS.values())
+    # Engine.serve runs the slice-1 kernels; the paged kernel is the
+    # serving path's (test_batch_engine_matches_engine_on_card).
+    assert all(_build.KERNELS[name].launches > 0
+               for name in ("matmul", "flash_prefill", "flash_decode"))
+    assert _build.KERNELS["paged_attention"].launches == 0
     torch.testing.assert_close(got, xla.serve(ids, 6), atol=0, rtol=0)
+
+
+def _paged_case(seed, *, B, L, Hq, Hkv, dh, bs, max_blocks, kv_lens, q_lens,
+                dead=(), kv=None, dtype=torch.float32, device="cuda"):
+    """A shuffled block pool with NaN in every block no live table
+    reaches (NaN scales for int8/fp8 pools), stale entries in the dead
+    slots' tables, and zero padding past each table's live blocks."""
+    rng = np.random.default_rng(seed)
+    n_blocks = B * max_blocks + 3
+    perm = rng.permutation(np.arange(1, n_blocks))
+    tables = np.zeros((B, max_blocks), np.int32)
+    reached = set()
+    for b in range(B):
+        n = math.ceil(kv_lens[b] / bs)
+        tables[b, :n] = perm[b * max_blocks:b * max_blocks + n]
+        if b in dead:
+            tables[b, :n] = perm[:n]          # stale: another slot's blocks
+        else:
+            reached.update(tables[b, :n].tolist())
+    dead_blocks = [i for i in range(n_blocks) if i not in reached]
+    shape = (n_blocks, bs, Hkv, dh)
+    k = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((B, L, Hq, dh)).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    scales = {}
+    if kv is None:
+        k[dead_blocks] = float("nan")
+        v[dead_blocks] = float("nan")
+        k, v = k.to(dtype), v.to(dtype)
+    else:
+        wire = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}[kv]
+        k, ks = quantize_kv_rows(k, wire)
+        v, vs = quantize_kv_rows(v, wire)
+        ks[dead_blocks] = float("nan")
+        vs[dead_blocks] = float("nan")
+        scales = dict(k_scale=ks.to(device), v_scale=vs.to(device))
+    mask = torch.tensor([b not in dead for b in range(B)], device=device)
+    return dict(q=q, k_pool=k.to(device), v_pool=v.to(device),
+                block_tables=torch.from_numpy(tables).to(device),
+                kv_lens=torch.tensor(kv_lens, dtype=torch.int32,
+                                     device=device),
+                q_lens=torch.tensor(q_lens, dtype=torch.int32, device=device),
+                slot_mask=mask, **scales)
+
+
+# name -> geometry: decode; chunked prefill in one query tile and in
+# several (64 / g positions per tile, causal straddles); ragged mixed rows
+# with q_lens 0 and 1 and a dead slot.
+PAGED_CASES = {
+    "decode": dict(B=4, L=1, Hq=8, Hkv=2, dh=128, bs=16, max_blocks=8,
+                   kv_lens=[1, 17, 128, 50], q_lens=[1, 1, 1, 1], dead=(3,)),
+    "prefill_one_tile": dict(B=2, L=8, Hq=4, Hkv=4, dh=128, bs=4,
+                             max_blocks=8, kv_lens=[8, 30], q_lens=[8, 8]),
+    "prefill_tiles": dict(B=3, L=40, Hq=8, Hkv=2, dh=128, bs=16,
+                          max_blocks=8, kv_lens=[40, 100, 77],
+                          q_lens=[40, 37, 20]),
+    "mixed_ragged": dict(B=4, L=24, Hq=8, Hkv=2, dh=64, bs=4, max_blocks=16,
+                         kv_lens=[24, 61, 5, 33], q_lens=[24, 1, 0, 9],
+                         dead=(2,)),
+    "small_head_dim": dict(B=2, L=6, Hq=4, Hkv=1, dh=32, bs=4, max_blocks=8,
+                           kv_lens=[6, 19], q_lens=[6, 3]),
+}
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", sorted(PAGED_CASES))
+def test_paged_attention_kernel_matches_plain(cuda, case, dtype, kv):
+    """Every path of csrc/paged_attention.cu (decode; prefill on mma.sync
+    for bf16 at head_dim 64/128, on the CUDA cores otherwise; int8/fp8
+    dequantized after the load) against paged_attention_ref, live slots
+    only; NaN in unreached blocks stays out and padding rows are zeros."""
+    geo = PAGED_CASES[case]
+    dead = geo.get("dead", ())
+    c = _paged_case(1, dtype=dtype, kv=kv, **geo)
+    _build.reset_counts()
+    got = tpa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_ATTENTION.launches == 1
+    want = tpa.paged_attention_ref(
+        **{k: (t.cpu() if isinstance(t, torch.Tensor) else t)
+           for k, t in c.items()}).to(cuda)
+    live = [b for b in range(geo["B"]) if b not in dead]
+    assert torch.isfinite(got[live]).all()
+    for b in live:
+        assert (got[b, geo["q_lens"][b]:] == 0).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[live], want[live], atol=tol, rtol=tol)
+
+
+def test_paged_attention_cuda_rejects_mismatched_pools(cuda):
+    c = _paged_case(2, **PAGED_CASES["decode"])
+    with pytest.raises(TypeError, match="scales"):
+        tpa.paged_attention_cuda(c["q"], c["k_pool"].to(torch.int8),
+                                 c["v_pool"].to(torch.int8),
+                                 c["block_tables"], c["kv_lens"])
+    with pytest.raises(TypeError, match="dtype"):
+        tpa.paged_attention_cuda(c["q"].bfloat16(), c["k_pool"],
+                                 c["v_pool"], c["block_tables"],
+                                 c["kv_lens"])
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_batch_engine_matches_engine_on_card(cuda, kv):
+    """fp32 tiny: the paged serving path through the kernels emits the
+    per-request Engine's greedy tokens, with chunked prefill and a
+    forced preemption."""
+    cfg = ModelConfig.from_name("tiny")
+    eng = Engine(cfg, mode="dist", device=cuda, seed=0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in (7, 9, 5, 6)]
+    be = BatchEngine(eng, n_slots=3, n_blocks=8, block_size=4,
+                     prefill_chunk=4, kv_dtype=kv)
+    rids = [be.submit(p, 6) for p in prompts]
+    _build.reset_counts()
+    out = be.run(max_steps=500)
+    assert tpa.PAGED_ATTENTION.launches > 0
+    assert be.metrics["preemptions"] > 0
+    if kv is None:
+        for rid, p in zip(rids, prompts):
+            want = eng.serve(torch.tensor([p], device=cuda), 6)[0].tolist()
+            assert out[rid] == want
+    else:
+        assert sorted(len(t) for t in out.values()) == [6] * 4
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_serving_steps_never_read_back_to_the_host(cuda, kv):
+    """Both serving steps run under ``set_sync_debug_mode("error")``:
+    no value inside a step is read back to the host, which is what a
+    CUDA-graph capture of the steps needs."""
+    cfg = ModelConfig.from_name("tiny")
+    eng = Engine(cfg, mode="dist", device=cuda, seed=0)
+    be = BatchEngine(eng, n_slots=3, block_size=4, prefill_chunk=4,
+                     kv_dtype=kv)
+    for n in (7, 9, 5):
+        be.submit(list(range(1, n + 1)), 4)
+    be.step()
+    ids, *ops = be.mixed_operands()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for paged, first in (("prefill", ids), ("decode", ids[:, :1])):
+            step = eng.make_paged_step(paged, kv_quant=kv is not None)
+            rest = ops if paged == "prefill" else ops[:-1]
+            torch.argmax(step(first, be.pool.state, *rest), dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

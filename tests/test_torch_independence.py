@@ -40,6 +40,10 @@ def test_scan_sees_the_whole_port():
     assert "chip_smoke.py" in names
     assert "triton_distributed_tpu_torch/models/engine.py" in names
     assert "triton_distributed_tpu_torch/kernels/sp_attention.py" in names
+    assert "triton_distributed_tpu_torch/kernels/paged_attention.py" in names
+    for mod in ("__init__", "batch_engine", "kv_pool", "prefix_cache",
+                "scheduler"):
+        assert f"triton_distributed_tpu_torch/serving/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -58,6 +62,7 @@ def test_forbidden_matcher_does_not_catch_the_port_itself():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, triton_distributed_tpu_torch as p; "
             "import triton_distributed_tpu_torch.kernels; "
+            "import triton_distributed_tpu_torch.serving; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'triton_distributed_tpu' or "
             "m.startswith('triton_distributed_tpu.')]; "
@@ -69,7 +74,12 @@ def test_import_leaves_jax_unloaded():
 
 
 def test_engine_without_device_needs_a_card():
-    from triton_distributed_tpu_torch import Engine, ModelConfig
+    from triton_distributed_tpu_torch import (
+        BatchEngine,
+        Engine,
+        KVPool,
+        ModelConfig,
+    )
     from triton_distributed_tpu_torch.runtime.device import resolve_device
 
     if torch.cuda.is_available():
@@ -77,6 +87,12 @@ def test_engine_without_device_needs_a_card():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         Engine(ModelConfig.from_name("tiny"))
+    # The serving path takes its Engine's device; a pool made on its own
+    # defaults to the card as well.
+    cpu = Engine(ModelConfig.from_name("tiny"), device="cpu")
+    assert BatchEngine(cpu, n_slots=2).pool.state.k.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KVPool(ModelConfig.from_name("tiny"), n_blocks=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"

@@ -7,11 +7,16 @@ to find:
   runtime/device.py       device resolution (cuda unless the caller asks
                           for the CPU; no card raises)
   models/                 ModelConfig presets, sampling, KVCache, Qwen3,
-                          Engine (prefill -> sample -> decode loop)
-  layers/                 nn ops, TPAttn, TPMLP at world 1
+                          Engine (prefill -> sample -> decode loop, and the
+                          two paged serving steps)
+  serving/                BatchEngine (continuous batching), KVPool,
+                          Scheduler, RadixPrefixCache
+  layers/                 nn ops (incl. KV quantization and the paged pool
+                          write/read), TPAttn, TPMLP at world 1
   kernels/                wrappers of the hand-written CUDA kernels in
-                          ``csrc/`` (matmul, flash prefill, flash decode),
-                          each beside its plain PyTorch version
+                          ``csrc/`` (matmul, flash prefill, flash decode,
+                          paged attention), each beside its plain PyTorch
+                          version
   kernels/_build.py       nvcc -> one shared library with a C interface,
                           loaded with ctypes at first use
 
@@ -33,4 +38,12 @@ from triton_distributed_tpu_torch.models import (  # noqa: F401
 )
 from triton_distributed_tpu_torch.runtime.device import (  # noqa: F401
     resolve_device,
+)
+from triton_distributed_tpu_torch.serving import (  # noqa: F401
+    BatchEngine,
+    KVPool,
+    PagedKVState,
+    RadixPrefixCache,
+    Request,
+    Scheduler,
 )

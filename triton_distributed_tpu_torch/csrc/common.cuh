@@ -1,9 +1,11 @@
 // Helpers shared by the port's CUDA kernels: element conversion between the
-// two storage types the kernels take (float, __nv_bfloat16) and f32, and
-// vector loads of 8 or EPL elements into f32 registers.
+// storage types the kernels take (float, __nv_bfloat16, and the 1-byte KV
+// wire types int8 and fp8 e4m3) and f32, and vector loads of 8 or EPL
+// elements into f32 registers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -12,10 +14,18 @@ namespace tdt {
 // dtype codes of the C interface (kernels/_build.py DTYPE_CODES)
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kI8 = 2;
+constexpr int kFP8 = 3;  // float8_e4m3fn
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -45,6 +55,22 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// Load 8 consecutive 1-byte wire values (8-byte aligned).
+template <typename W>
+__device__ __forceinline__ void load8_bytes(const W* p, float* out) {
+  static_assert(sizeof(W) == 1, "1-byte wire types only");
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  const W* w = reinterpret_cast<const W*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = to_f32(w[i]);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* out) {
+  load8_bytes(p, out);
+}
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
+  load8_bytes(p, out);
+}
+
 // Load N (1, 2 or 4) consecutive elements, aligned to N elements.
 template <int N>
 __device__ __forceinline__ void load_n(const float* p, float* out) {
@@ -72,6 +98,31 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* out) {
   } else {
     out[0] = __bfloat162float(*p);
   }
+}
+
+template <int N, typename W>
+__device__ __forceinline__ void load_n_bytes(const W* p, float* out) {
+  static_assert(sizeof(W) == 1, "1-byte wire types only");
+  if constexpr (N == 4) {
+    uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    const W* w = reinterpret_cast<const W*>(&u);
+    out[0] = to_f32(w[0]); out[1] = to_f32(w[1]);
+    out[2] = to_f32(w[2]); out[3] = to_f32(w[3]);
+  } else if constexpr (N == 2) {
+    uint16_t u = *reinterpret_cast<const uint16_t*>(p);
+    const W* w = reinterpret_cast<const W*>(&u);
+    out[0] = to_f32(w[0]); out[1] = to_f32(w[1]);
+  } else {
+    out[0] = to_f32(*p);
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_n(const int8_t* p, float* out) {
+  load_n_bytes<N>(p, out);
+}
+template <int N>
+__device__ __forceinline__ void load_n(const __nv_fp8_e4m3* p, float* out) {
+  load_n_bytes<N>(p, out);
 }
 
 // 16-byte asynchronous global -> shared copy; src_bytes 0 fills the 16

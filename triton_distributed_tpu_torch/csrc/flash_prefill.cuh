@@ -1,0 +1,526 @@
+// Causal GQA flash prefill with per-row offsets and lengths (varlen), for
+// any K/V row layout of kv_rows.cuh. flash_prefill.cu instantiates it over
+// the contiguous cache, paged_attention.cu over the block-paged pool.
+//
+// Contract: q (B, L, Hq, dh) row-major. Query j of row b sits at position
+//   offset[b] + j and attends keys at positions <= its own and < kv_len[b];
+//   query rows j >= q_len[b] are padding and come back as exact zeros.
+//   q head h reads kv head h / g.
+//
+// Design: one block per (q tile, kv head, batch row); a tile is 64 query
+//   rows, the (position, GQA head) pairs of 64/g consecutive positions, so
+//   all g heads of the group share every K/V chunk the block loads. The
+//   block walks key chunks only up to its causal frontier and the row's
+//   kv_len; K/V rows past that are never loaded (zeros in shared memory,
+//   never a multiply by 0 of garbage), so NaN in the cache tail cannot
+//   leak. Streaming softmax in f32 with the max(l, 1e-30) denominator.
+//   bf16 with head_dim 64 or 128 (the Qwen3/Llama presets) and unquantized
+//   K/V runs both products on the tensor cores (mma.sync m16n8k16,
+//   FlashAttention-2 register layout, K/V chunks double-buffered by
+//   cp.async); wgmma, TMA and warp specialisation are later steps. Every
+//   other case (fp32, other head_dims, int8/fp8 K/V dequantized right after
+//   the load) takes a plain kernel on the CUDA cores in f32 (4x2 scores and
+//   4x8 outputs per thread from shared-memory tiles).
+#pragma once
+
+#include <math.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "kv_rows.cuh"
+
+namespace {
+namespace prefill {
+
+constexpr int R = 64;   // query rows (position x GQA head) per block
+constexpr int CK = 32;  // keys per chunk
+constexpr int THREADS = 256;
+
+template <int DH>
+constexpr int smem_floats() {
+  return R * (DH + 1)      // sQ  [R][DH+1]
+         + CK * (DH + 1)   // sK  [CK][DH+1]
+         + CK * DH         // sV  [CK][DH]
+         + R * (CK + 1)    // sS  [R][CK+1]
+         + 3 * R;          // row max, row sum, correction
+}
+
+template <typename TQ, int DH, typename KV>
+__global__ void __launch_bounds__(THREADS)
+    flash_prefill_kernel(const TQ* __restrict__ q, KV kv, TQ* __restrict__ o,
+                         const int* __restrict__ rows, int offset0,
+                         int kv_len0, int q_len0, int L, int Hq, int Hkv,
+                         int S, int dh, float scale) {
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sK = sQ + R * (DH + 1);
+  float* sV = sK + CK * (DH + 1);
+  float* sS = sV + CK * DH;
+  float* sM = sS + R * (CK + 1);
+  float* sL = sM + R;
+  float* sC = sL + R;
+
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int B = gridDim.z;
+  const int g = Hq / Hkv, lb = R / g;
+  const int offset = rows ? rows[b] : offset0;
+  const int kv_len = min(rows ? rows[B + b] : kv_len0, S);
+  const int q_len = min(rows ? rows[2 * B + b] : q_len0, L);
+  const int p0 = qb * lb;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int vecs = dh / 8;
+  kv.bind(b, h);
+
+  for (int i = tid; i < R * vecs; i += THREADS) {
+    const int r = i / vecs, c = (i % vecs) * 8;
+    const int p = p0 + r / g;
+    float buf[8];
+    if (p < L) {
+      tdt::load8(q + (((size_t)b * L + p) * Hq + (size_t)h * g + r % g) * dh +
+                     c,
+                 buf);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) buf[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sQ[r * (DH + 1) + c + e] = buf[e] * scale;
+  }
+  if (tid < R) {
+    sM[tid] = -INFINITY;
+    sL[tid] = 0.f;
+  }
+
+  // Keys this tile can see: below the causal frontier of its last valid
+  // query and below kv_len. A tile of padding rows sees none.
+  const int q_hi = min(p0 + lb, q_len);
+  const int kv_hi = q_hi > p0 ? min(kv_len, offset + q_hi) : 0;
+
+  constexpr int NC = DH / 16;
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+
+  __syncthreads();
+  for (int c0 = 0; c0 < kv_hi; c0 += CK) {
+    for (int i = tid; i < CK * vecs; i += THREADS) {
+      const int c = i / vecs, d = (i % vecs) * 8;
+      const int s = c0 + c;
+      float kf[8], vf[8];
+      if (s < kv_hi) {
+        tdt::load8(kv.krow(s) + d, kf);
+        tdt::load8(kv.vrow(s) + d, vf);
+        if constexpr (KV::kQuant) {
+          const float ka = kv.kscale(s), va = kv.vscale(s);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            kf[e] *= ka;
+            vf[e] *= va;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sK[c * (DH + 1) + d + e] = kf[e];
+        sV[c * DH + d + e] = vf[e];
+      }
+    }
+    __syncthreads();
+
+    // Scores: rows ty + 16 i, keys tx + 16 j.
+    float sc[4][CK / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CK / 16; ++j) sc[i][j] = 0.f;
+    for (int d = 0; d < dh; ++d) {
+      float a[4], kk[CK / 16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * (DH + 1) + d];
+#pragma unroll
+      for (int j = 0; j < CK / 16; ++j) kk[j] = sK[(tx + 16 * j) * (DH + 1) + d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < CK / 16; ++j) sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      const int p = p0 + r / g;
+      const int qpos = offset + p;
+#pragma unroll
+      for (int j = 0; j < CK / 16; ++j) {
+        const int c = tx + 16 * j, key = c0 + c;
+        const bool valid = p < q_hi && key <= qpos && key < kv_len;
+        sS[r * (CK + 1) + c] = valid ? sc[i][j] : -INFINITY;
+      }
+    }
+    __syncthreads();
+
+    // Streaming softmax: 4 threads per row, CK/4 keys each.
+    {
+      const int r = tid >> 2, part = tid & 3;
+      float* srow = sS + r * (CK + 1) + part * (CK / 4);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < CK / 4; ++c) mx = fmaxf(mx, srow[c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_old = sM[r];
+      const float mn = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < CK / 4; ++c) {
+        const float sv = srow[c];
+        const float pv = sv == -INFINITY ? 0.f : expf(sv - mn);
+        srow[c] = pv;
+        sum += pv;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (part == 0) {
+        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - mn);
+        sC[r] = corr;
+        sL[r] = sL[r] * corr + sum;
+        sM[r] = mn;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V: rows ty + 16 i, head_dim columns tx + 16 j.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float corr = sC[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
+    }
+    for (int c = 0; c < CK; ++c) {
+      float p[4], vv[NC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * (CK + 1) + c];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) vv[j] = sV[c * DH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int p = p0 + r / g;
+    if (p >= L) continue;
+    const float den = fmaxf(sL[r], 1e-30f);
+    TQ* orow = o + (((size_t)b * L + p) * Hq + (size_t)h * g + r % g) * dh;
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      const int col = tx + 16 * j;
+      if (col < dh) orow[col] = tdt::from_f32<TQ>(acc[i][j] / den);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (head_dim 64 or 128, unquantized bf16 K/V):
+// mma.sync m16n8k16 in the FlashAttention-2 arrangement. Four warps own 16
+// of the tile's 64 rows each; a warp keeps its Q fragments and its O
+// accumulator in registers, turns its score accumulators into the P operand
+// without a trip through shared memory, and reads V through ldmatrix.trans.
+// K/V chunks of 64 keys are double-buffered with cp.async; rows past the
+// visible keys arrive as zeros (cp.async with a source size of 0), never
+// read from the cache.
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_CK = 64;  // keys per chunk
+
+template <int DH>
+constexpr int mma_smem_bytes() {
+  return (R + 4 * MMA_CK) * (DH + 8) * 2;  // Q + 2 stages of K and V
+}
+
+template <int DH, typename KV>
+__global__ void __launch_bounds__(MMA_WARPS * 32)
+    flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
+                             __nv_bfloat16* __restrict__ o,
+                             const int* __restrict__ rows, int offset0,
+                             int kv_len0, int q_len0, int L, int Hq, int Hkv,
+                             int S, float scale_log2) {
+  using bf16 = __nv_bfloat16;
+  static_assert(std::is_same<typename KV::Elem, bf16>::value && !KV::kQuant,
+                "the tensor-core kernel reads unquantized bf16 K/V");
+  constexpr int LD = DH + 8;   // shared row stride (bf16), conflict-free
+  constexpr int KT = DH / 16;  // k-steps of Q K^T
+  constexpr int NT = DH / 8;   // n-tiles of P V
+  constexpr int VEC = DH / 8;  // 16-byte vectors per row
+  constexpr int THREADS_M = MMA_WARPS * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + R * LD;             // [2][MMA_CK][LD]
+  bf16* sV = sK + 2 * MMA_CK * LD;    // [2][MMA_CK][LD]
+
+  // Heaviest (latest) causal tiles first, so the grid's tail is short.
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int g = Hq / Hkv, lb = R / g;
+  const int offset = rows ? rows[b] : offset0;
+  const int kv_len = min(rows ? rows[B + b] : kv_len0, S);
+  const int q_len = min(rows ? rows[2 * B + b] : q_len0, L);
+  const int p0 = qb * lb;
+  const int q_hi = min(p0 + lb, q_len);
+  const int kv_hi = q_hi > p0 ? min(kv_len, offset + q_hi) : 0;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  kv.bind(b, h);
+
+  for (int i = tid; i < R * VEC; i += THREADS_M) {
+    const int r = i / VEC, c = (i % VEC) * 8;
+    const int p = p0 + r / g;
+    const bool ok = p < L;
+    const bf16* src =
+        ok ? q + (((size_t)b * L + p) * Hq + (size_t)h * g + r % g) * DH + c
+           : q;
+    tdt::cp_async16(sQ + r * LD + c, src, ok ? 16 : 0);
+  }
+  tdt::cp_async_commit();
+
+  auto load_kv = [&](int stage, int c0) {
+    bf16* dk = sK + stage * MMA_CK * LD;
+    bf16* dv = sV + stage * MMA_CK * LD;
+    for (int i = tid; i < MMA_CK * VEC; i += THREADS_M) {
+      const int c = i / VEC, d = (i % VEC) * 8;
+      const int s = c0 + c;
+      const bool ok = s < kv_hi;
+      tdt::cp_async16(dk + c * LD + d, ok ? kv.krow(s) + d : kv.k,
+                      ok ? 16 : 0);
+      tdt::cp_async16(dv + c * LD + d, ok ? kv.vrow(s) + d : kv.v,
+                      ok ? 16 : 0);
+    }
+  };
+
+  // This thread's two rows of the tile: r0 (gid) and r1 (gid + 8).
+  const int r0 = warp * 16 + gid, r1 = r0 + 8;
+  const int pa = p0 + r0 / g, pb = p0 + r1 / g;
+  const int qpos_a = offset + pa, qpos_b = offset + pb;
+  const bool live_a = pa < q_hi, live_b = pb < q_hi;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float oacc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
+  uint32_t qf[KT][4];
+
+  const int nchunks = (kv_hi + MMA_CK - 1) / MMA_CK;
+  if (nchunks > 0) load_kv(0, 0);
+  tdt::cp_async_commit();
+  for (int it = 0; it < nchunks; ++it) {
+    const int st = it & 1;
+    if (it + 1 < nchunks) load_kv(st ^ 1, (it + 1) * MMA_CK);
+    tdt::cp_async_commit();
+    tdt::cp_async_wait1();  // Q and this chunk have landed
+    __syncthreads();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        const bf16* base = sQ + (warp * 16 + gid) * LD + kk * 16 + 2 * tig;
+        qf[kk][0] = tdt::ld_b32(base);
+        qf[kk][1] = tdt::ld_b32(base + 8 * LD);
+        qf[kk][2] = tdt::ld_b32(base + 8);
+        qf[kk][3] = tdt::ld_b32(base + 8 * LD + 8);
+      }
+    }
+    const bf16* cK = sK + st * MMA_CK * LD;
+    const bf16* cV = sV + st * MMA_CK * LD;
+
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
+    float sacc[MMA_CK / 8][4];
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < MMA_CK / 8; ++j) {
+        const bf16* kp = cK + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
+        const uint32_t bfrag[2] = {tdt::ld_b32(kp), tdt::ld_b32(kp + 8)};
+        tdt::mma_bf16(sacc[j], qf[kk], bfrag);
+      }
+    }
+
+    // Mask (causal, kv_len, padding rows) and scale into the log2 domain.
+    const int c0 = it * MMA_CK;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = c0 + j * 8 + 2 * tig + e;
+        const bool kok = key < kv_len;
+        const float sa = live_a && kok && key <= qpos_a
+                             ? sacc[j][e] * scale_log2 : -INFINITY;
+        const float sbv = live_b && kok && key <= qpos_b
+                              ? sacc[j][2 + e] * scale_log2 : -INFINITY;
+        sacc[j][e] = sa;
+        sacc[j][2 + e] = sbv;
+        mx_a = fmaxf(mx_a, sa);
+        mx_b = fmaxf(mx_b, sbv);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = m_a == -INFINITY ? 0.f : exp2f(m_a - mn_a);
+    const float corr_b = m_b == -INFINITY ? 0.f : exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = sacc[j][e], xb = sacc[j][2 + e];
+        const float pva = xa == -INFINITY ? 0.f : exp2f(xa - mn_a);
+        const float pvb = xb == -INFINITY ? 0.f : exp2f(xb - mn_b);
+        sacc[j][e] = pva;
+        sacc[j][2 + e] = pvb;
+        sum_a += pva;
+        sum_b += pvb;
+      }
+    }
+    // Partial row sums stay per thread (the quad shares corr); they are
+    // summed across the quad once, at the end.
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      oacc[n][0] *= corr_a;
+      oacc[n][1] *= corr_a;
+      oacc[n][2] *= corr_b;
+      oacc[n][3] *= corr_b;
+    }
+
+    // O += P V: the score accumulators of key tiles 2ks, 2ks+1 are the
+    // A fragment of k-step ks.
+    const int mat = lane / 8, mrow = lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < MMA_CK / 16; ++ks) {
+      const uint32_t pfrag[4] = {
+          tdt::pack_bf16x2(sacc[2 * ks][0], sacc[2 * ks][1]),
+          tdt::pack_bf16x2(sacc[2 * ks][2], sacc[2 * ks][3]),
+          tdt::pack_bf16x2(sacc[2 * ks + 1][0], sacc[2 * ks + 1][1]),
+          tdt::pack_bf16x2(sacc[2 * ks + 1][2], sacc[2 * ks + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t vfrag[4];
+        tdt::ldmatrix_x4_trans(
+            vfrag, cV + (ks * 16 + (mat & 1) * 8 + mrow) * LD +
+                       (n + (mat >> 1)) * 8);
+        tdt::mma_bf16(oacc[n], pfrag, vfrag);
+        tdt::mma_bf16(oacc[n + 1], pfrag, vfrag + 2);
+      }
+    }
+    __syncthreads();  // the stage is free for the load two chunks on
+  }
+  tdt::cp_async_wait_all();  // a tile that saw no keys still loaded Q
+
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
+  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (pa < L) {
+    bf16* orow = o + (((size_t)b * L + pa) * Hq + (size_t)h * g + r0 % g) * DH;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tig) =
+          __floats2bfloat162_rn(oacc[n][0] * inv_a, oacc[n][1] * inv_a);
+  }
+  if (pb < L) {
+    bf16* orow = o + (((size_t)b * L + pb) * Hq + (size_t)h * g + r1 % g) * DH;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tig) =
+          __floats2bfloat162_rn(oacc[n][2] * inv_b, oacc[n][3] * inv_b);
+  }
+}
+
+template <int DH, typename KV>
+cudaError_t launch_mma(const void* q, KV kv, void* o, const int* rows,
+                       int offset0, int kv_len0, int q_len0, int B, int L,
+                       int Hq, int Hkv, int S, float scale, cudaStream_t s) {
+  constexpr int bytes = mma_smem_bytes<DH>();
+  auto kernel = flash_prefill_mma_kernel<DH, KV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int lb = R / (Hq / Hkv);
+  dim3 grid((L + lb - 1) / lb, Hkv, B);
+  kernel<<<grid, MMA_WARPS * 32, bytes, s>>>(
+      static_cast<const __nv_bfloat16*>(q), kv,
+      static_cast<__nv_bfloat16*>(o), rows, offset0, kv_len0, q_len0, L, Hq,
+      Hkv, S, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <typename TQ, int DH, typename KV>
+cudaError_t launch_simt(const void* q, KV kv, void* o, const int* rows,
+                        int offset0, int kv_len0, int q_len0, int B, int L,
+                        int Hq, int Hkv, int S, int dh, float scale,
+                        cudaStream_t s) {
+  constexpr int bytes = smem_floats<DH>() * 4;
+  auto kernel = flash_prefill_kernel<TQ, DH, KV>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const int lb = R / (Hq / Hkv);
+  dim3 grid((L + lb - 1) / lb, Hkv, B);
+  kernel<<<grid, THREADS, bytes, s>>>(
+      static_cast<const TQ*>(q), kv, static_cast<TQ*>(o), rows, offset0,
+      kv_len0, q_len0, L, Hq, Hkv, S, dh, scale);
+  return cudaGetLastError();
+}
+
+// The tensor-core kernel for bf16 q with unquantized bf16 K/V at head_dim
+// 64/128; the CUDA-core kernel for everything else. The caller has checked
+// the shapes (g divides R, dh a multiple of 8 up to 128).
+template <typename TQ, typename KV>
+cudaError_t dispatch(const void* q, KV kv, void* o, const int* rows,
+                     int offset0, int kv_len0, int q_len0, int B, int L,
+                     int Hq, int Hkv, int S, int dh, float scale,
+                     cudaStream_t s) {
+  if constexpr (std::is_same<TQ, __nv_bfloat16>::value &&
+                std::is_same<typename KV::Elem, __nv_bfloat16>::value &&
+                !KV::kQuant) {
+    if (dh == 128)
+      return launch_mma<128>(q, kv, o, rows, offset0, kv_len0, q_len0, B, L,
+                             Hq, Hkv, S, scale, s);
+    if (dh == 64)
+      return launch_mma<64>(q, kv, o, rows, offset0, kv_len0, q_len0, B, L,
+                            Hq, Hkv, S, scale, s);
+  }
+  if (dh <= 64)
+    return launch_simt<TQ, 64>(q, kv, o, rows, offset0, kv_len0, q_len0, B,
+                               L, Hq, Hkv, S, dh, scale, s);
+  return launch_simt<TQ, 128>(q, kv, o, rows, offset0, kv_len0, q_len0, B, L,
+                              Hq, Hkv, S, dh, scale, s);
+}
+
+}  // namespace prefill
+}  // namespace

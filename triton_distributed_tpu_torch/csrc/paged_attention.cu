@@ -1,0 +1,126 @@
+// GQA attention of an L-token query block per slot, read straight from a
+// block-paged KV pool: the serving path's decode (L == 1), chunked-prefill
+// and ragged mixed steps.
+//
+// Replaces: triton_distributed_tpu/kernels/paged_attention.py:248
+//   _paged_attn_kernel (via paged_attention :402 and
+//   paged_decode_attention :613), in its unquantized and its int8/fp8
+//   builds.
+//
+// Contract: q (B, L, Hq, dh) row-major, f32 or bf16; the pools
+//   (n_blocks, block_size, Hkv, dh) in q's dtype, or int8 / fp8 e4m3 with
+//   f32 scales (n_blocks, block_size, Hkv); tables (B, max_blocks) int32,
+//   dead slots already routed to block 0 by the caller; rows (3, B) int32
+//   = (kv_len - q_len, kv_len, q_len) per slot, kv_len 0 where q_len is 0.
+//   Query row j of slot b sits at position kv_len - q_len + j and attends
+//   keys 0..that position; key position p lives at line p % block_size of
+//   block table[b, p / block_size], clamped to [0, n_blocks). Rows
+//   j >= q_len are padding and come back as exact zeros. Output
+//   (B, L, Hq, dh) in q's dtype.
+//
+// What bounds it on the H100: device memory. A decode step reads every
+//   valid key and value row once (2 * kv_len * Hkv * dh wire elements per
+//   slot, plus the scales when quantized) for ~4 * g operations per
+//   element, far below the ~295 operations per byte where the tensor cores
+//   would become the limit. A mixed step with a long chunk (L = 256 at
+//   g = 2) does ~4 * g * L operations per K/V element, near that line.
+//
+// What this design does about it: the block table is the only new piece.
+//   It is walked inside the kernel (kv_rows.cuh PagedRows: one table load
+//   per key row, L1-cached), so the pool bytes are read once per causal
+//   query tile and no contiguous copy of the cache is ever made. The two
+//   halves are the existing kernels, instantiated over the paged rows:
+//   L == 1 takes flash_decode.cuh (one block per (slot, kv head), the g
+//   query heads of a group share every row read); L > 1 takes
+//   flash_prefill.cuh (one block per (slot, kv head, 64-row query tile),
+//   bf16 on mma.sync at head_dim 64/128, everything else on the CUDA cores
+//   in f32). Both load only rows below each tile's causal frontier
+//   min(kv_len, kv_len - q_len + last live row + 1): table entries past it
+//   (allocator padding that may name a live sequence's block) are never
+//   followed, rows not loaded are zeros or masked by a select, and a fully
+//   masked row adds nothing to its denominator. int8/fp8 rows are
+//   dequantized as float(wire) * scale right after the load and accumulate
+//   in f32 exactly like the unquantized build. No split-KV, wgmma or TMA
+//   yet.
+#include "flash_decode.cuh"
+#include "flash_prefill.cuh"
+
+namespace {
+
+template <typename TQ, typename KV>
+cudaError_t run(const void* q, KV kv, void* out, const int* rows, int B,
+                int L, int Hq, int Hkv, int S, int dh, float scale,
+                cudaStream_t s) {
+  if (L == 1) {
+    // One query row per slot: kv_len is the middle row of `rows`.
+    if (!decode::dispatch<TQ, TQ>(Hq / Hkv, q, kv, static_cast<TQ*>(out),
+                                  nullptr, rows + B, 0, B, Hq, Hkv, S, dh,
+                                  scale, s))
+      return cudaErrorInvalidValue;
+    return cudaGetLastError();
+  }
+  if (prefill::R % (Hq / Hkv)) return cudaErrorInvalidValue;
+  return prefill::dispatch<TQ>(q, kv, out, rows, 0, 0, 0, B, L, Hq, Hkv, S,
+                               dh, scale, s);
+}
+
+template <typename TQ>
+cudaError_t by_pool(int kv_dtype, const void* q, const void* k,
+                    const void* v, const float* ks, const float* vs,
+                    const int* tables, const int* rows, void* out, int B,
+                    int L, int Hq, int Hkv, int n_blocks, int bs,
+                    int max_blocks, int dh, float scale, cudaStream_t s) {
+  const int S = max_blocks * bs;
+  const bool quant = kv_dtype == tdt::kI8 || kv_dtype == tdt::kFP8;
+  if (quant != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
+  if (kv_dtype == tdt::kI8) {
+    tdt::PagedRows<int8_t, true> kv{
+        static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks, vs,
+        tables, max_blocks, n_blocks, bs, Hkv, dh};
+    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+  }
+  if (kv_dtype == tdt::kFP8) {
+    using F8 = __nv_fp8_e4m3;
+    tdt::PagedRows<F8, true> kv{static_cast<const F8*>(k),
+                                static_cast<const F8*>(v), ks, vs, tables,
+                                max_blocks, n_blocks, bs, Hkv, dh};
+    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+  }
+  // Unquantized: the pool holds q's dtype.
+  const int q_code = std::is_same<TQ, float>::value ? tdt::kF32 : tdt::kBF16;
+  if (kv_dtype != q_code) return cudaErrorInvalidValue;
+  tdt::PagedRows<TQ, false> kv{static_cast<const TQ*>(k),
+                               static_cast<const TQ*>(v), nullptr, nullptr,
+                               tables, max_blocks, n_blocks, bs, Hkv, dh};
+  return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+}
+
+}  // namespace
+
+extern "C" int tdt_paged_attention(
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* tables, const void* rows, void* out,
+    long long B, long long L, long long Hq, long long Hkv, long long n_blocks,
+    long long bs, long long max_blocks, long long dh, float scale,
+    int q_dtype, int kv_dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || L <= 0 || Hkv <= 0 || Hq % Hkv || dh <= 0 || dh > 128 ||
+      dh % 8 || B > 65535 || Hkv > 65535 || L > INT32_MAX ||
+      n_blocks <= 0 || bs <= 0 || max_blocks <= 0 ||
+      n_blocks * bs > INT32_MAX || max_blocks * bs > INT32_MAX)
+    return cudaErrorInvalidValue;
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
+  const int* t = static_cast<const int*>(tables);
+  const int* r = static_cast<const int*>(rows);
+  if (q_dtype == tdt::kBF16)
+    return by_pool<__nv_bfloat16>(kv_dtype, q, k, v, ks, vs, t, r, out,
+                                  (int)B, (int)L, (int)Hq, (int)Hkv,
+                                  (int)n_blocks, (int)bs, (int)max_blocks,
+                                  (int)dh, scale, s);
+  if (q_dtype == tdt::kF32)
+    return by_pool<float>(kv_dtype, q, k, v, ks, vs, t, r, out, (int)B,
+                          (int)L, (int)Hq, (int)Hkv, (int)n_blocks, (int)bs,
+                          (int)max_blocks, (int)dh, scale, s);
+  return cudaErrorInvalidValue;
+}

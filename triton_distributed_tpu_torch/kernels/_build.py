@@ -51,6 +51,12 @@ SIGNATURES = {
     "tdt_flash_decode": [P, P, P, P, P, P, I32,
                          I64, I64, I64, I64, I64, I64, I64, I64, F32, I32,
                          P],
+    # q, k_pool, v_pool, k_scale, v_scale (nullable), tables, rows ((3, B)
+    # int32: kv_len - q_len, kv_len, q_len), out, B, L, Hq, Hkv, n_blocks,
+    # block_size, max_blocks, dh, scale, q dtype, pool dtype, stream
+    "tdt_paged_attention": [P, P, P, P, P, P, P, P,
+                            I64, I64, I64, I64, I64, I64, I64, I64, F32,
+                            I32, I32, P],
 }
 
 
@@ -176,12 +182,15 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Element types of the C interface (csrc/common.cuh kF32 .. kFP8). int8 and
+# fp8 are KV wire types: only the paged-attention pools take them.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.float8_e4m3fn: 3}
+FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 
-def dtype_code(t) -> int:
-    try:
-        return DTYPE_CODES[t.dtype]
-    except KeyError:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16, got "
-                        f"{t.dtype}") from None
+def dtype_code(t, allowed=FLOAT_TYPES) -> int:
+    if t.dtype not in allowed:
+        raise TypeError(f"the CUDA kernels take {[str(d) for d in allowed]} "
+                        f"here, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]

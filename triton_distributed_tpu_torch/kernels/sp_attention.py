@@ -17,7 +17,9 @@ port's ``flash_prefill`` always answers.
 
 Each entry point takes CUDA tensors to the kernel and CPU tensors to the
 plain version beside it (``flash_prefill_ref``, ``flash_decode_ref``). The
-sequence-parallel multi-rank kernels are not ported yet.
+sequence-parallel multi-rank kernels are not ported yet. ``paged_gather_kv``
+(:800), the paged pool's table walk, is the serving path's reference
+oracle.
 """
 
 from __future__ import annotations
@@ -254,6 +256,28 @@ def flash_decode_local(q, k_cache, v_cache, *, kv_len=None,
                                  scale=scale, kv_layout=kv_layout)
     return flash_decode_ref(q, k_cache, v_cache, kv_len=kv_len, scale=scale,
                             kv_layout=kv_layout)
+
+
+def paged_gather_kv(pool, block_tables, *, slot_mask=None):
+    """Gather one layer of a block-paged pool into the contiguous per-slot
+    layout (JAX ``paged_gather_kv`` :800): pool (n_blocks, block_size, ...)
+    and block_tables (B, max_blocks) int32 -> (B, max_blocks * block_size,
+    ...), slot b's tokens in sequence order. Table entries are clamped to
+    ``[0, n_blocks)`` (the JAX ``mode="clip"``); ``slot_mask`` (B,) bool
+    routes dead slots' reads to block 0, so a freed slot's stale entries
+    never touch blocks since handed to live sequences. Works for the
+    (n_blocks, block_size, Hkv) scale arenas too. The reference path only:
+    the serving steps read the pool through ``paged_attention``."""
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f"block_tables must be int32 (got "
+                        f"{block_tables.dtype}), as KVPool.padded_tables "
+                        f"emits them")
+    B, nb = block_tables.shape
+    if slot_mask is not None:
+        block_tables = torch.where(slot_mask[:, None], block_tables, 0)
+    idx = block_tables.reshape(-1).long().clamp(0, pool.shape[0] - 1)
+    return pool.index_select(0, idx).reshape(B, nb * pool.shape[1],
+                                             *pool.shape[2:])
 
 
 def _check_attn_operands(q, k, v, name: str) -> None:

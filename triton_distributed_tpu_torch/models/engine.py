@@ -13,6 +13,8 @@ Modes:
 
 PyTorch runs eagerly, so there is no step to compile; the KV cache is
 written in place where the JAX engine donates its buffers to a jitted step.
+``make_paged_step`` builds the two fixed-shape serving steps that
+``serving.BatchEngine`` calls (the JAX ``Engine._make_sm(paged=...)``).
 Not ported yet (see ROADMAP.md): ``mode="ar"``, ``serve_scanned`` (a CUDA
 graph of the decode loop), ``aot_cache`` and ``hf_path``.
 """
@@ -63,6 +65,43 @@ class Engine:
                                     mode=self.mode)
         kv.offset += ids.shape[1]
         return logits, kv
+
+    def make_paged_step(self, paged: str, *, paged_attn: str = "fused",
+                        kv_quant: bool = False):
+        """One serving step over the block-paged pool, the counterpart of
+        the JAX ``Engine._make_sm(paged=..., paged_attn=...,
+        kv_quant=...)`` (:72-171).
+
+        ``paged="decode"``: ``step(ids, pool, offsets, block_tables,
+        slot_mask)`` with ids (n_slots, 1). ``paged="prefill"`` (the mixed
+        step): ``step(ids, pool, offsets, block_tables, slot_mask,
+        seq_lens)`` with ids (n_slots, prefill_chunk) and ``seq_lens``
+        (n_slots,) the live tokens of each row. ``pool`` is a
+        ``serving.kv_pool.PagedKVState`` (or anything with ``k``, ``v``,
+        ``k_scale``, ``v_scale``), written in place. Returns the logits
+        (n_slots, vocab) f32 at each row's last live token. Every operand is
+        data: slot churn changes values, never a shape."""
+        if paged not in ("decode", "prefill"):
+            raise ValueError(f"unknown paged variant {paged!r}")
+        model, mode = self.model, self.mode
+
+        @torch.inference_mode()
+        def step(ids, pool, offsets, block_tables, slot_mask, seq_lens=None):
+            if (paged == "prefill") != (seq_lens is not None):
+                raise ValueError("the mixed (prefill) step takes seq_lens; "
+                                 "the decode step does not")
+            if kv_quant != (pool.k_scale is not None):
+                raise ValueError(f"step built with kv_quant={kv_quant} got a "
+                                 f"pool {'without' if kv_quant else 'with'} "
+                                 f"scale arenas")
+            scales = (pool.k_scale, pool.v_scale) if kv_quant else None
+            return model.forward(self.params, ids, pool.k, pool.v, offsets,
+                                 mode=mode, seq_lens=seq_lens,
+                                 block_tables=block_tables,
+                                 slot_mask=slot_mask, paged_attn=paged_attn,
+                                 kv_scales=scales)
+
+        return step
 
     @torch.inference_mode()
     def prefill(self, input_ids, kv: KVCache):

@@ -9,7 +9,8 @@ JAX parameter tree (as numpy arrays) over unchanged, so both frameworks can
 run the same weights.
 
 The JAX stack walks the layers with ``lax.scan``; here a Python loop walks
-them, and each layer writes its slice of the KV cache in place.
+them, and each layer writes its slice of the KV cache (or of the serving
+path's block pool) in place.
 """
 
 from __future__ import annotations
@@ -134,33 +135,68 @@ class Qwen3:
             params["lm_head"] = randw((d, c.vocab_size), d)
         return params
 
-    def forward(self, params, ids, k_cache, v_cache, offset: int, *,
-                mode: str = "dist") -> torch.Tensor:
-        """One forward step. ids: (B, L) int; k/v_cache: (n_layers, B, S,
-        Hkv, dh), written in place at ``[offset, offset + L)``. Returns the
-        logits (B, vocab) f32 at the last position."""
+    def forward(self, params, ids, k_cache, v_cache, offset, *,
+                mode: str = "dist", seq_lens=None, block_tables=None,
+                slot_mask=None, paged_attn: str = "fused",
+                kv_scales=None) -> torch.Tensor:
+        """One forward step. ids: (B, L) int. Returns the logits (B, vocab)
+        f32 at each row's last position.
+
+        Contiguous cache (``Engine``): k/v_cache (n_layers, B, S, Hkv, dh),
+        written in place at ``[offset, offset + L)``.
+
+        Serving (``BatchEngine``, the keywords of the JAX
+        ``forward_device`` :271): ``offset`` a (B,) per-slot depth;
+        ``seq_lens`` (B,) live tokens per row, and the logits of row b come
+        from its last valid position ``seq_lens[b] - 1`` (0 when the row is
+        empty: garbage the caller discards); ``block_tables`` (B,
+        max_blocks) int32 and ``slot_mask`` (B,) bool switch the caches to
+        the block pool (n_layers, n_blocks, block_size, Hkv, dh), written
+        in place; ``paged_attn`` "fused" (the kernel) or "gather" (the
+        oracle); ``kv_scales`` (k_scale, v_scale) the per-layer scale
+        arenas (n_layers, n_blocks, block_size, Hkv) f32 of an int8/fp8
+        pool. ``spec_verify`` waits for the speculative slice."""
         c = self.config
         _check_dense(c)
         if mode not in ("dist", "xla"):
             raise ValueError(f"unknown mode {mode!r} (ported: 'dist', 'xla'; "
                              f"'ar' waits for the allreduce kernel)")
+        if kv_scales is not None and block_tables is None:
+            raise ValueError("kv_scales requires the paged cache layout "
+                             "(block_tables)")
+        attn_kw = dict(seq_lens=seq_lens)
+        if block_tables is not None:
+            # The pool addressing depends on the step alone: built once here,
+            # shared by every layer's writes and reads.
+            step = nn.paged_step(block_tables, offset, ids.shape[1],
+                                 *k_cache.shape[1:3], slot_mask=slot_mask,
+                                 seq_lens=seq_lens)
+            attn_kw.update(block_tables=block_tables, slot_mask=slot_mask,
+                           paged_attn=paged_attn, paged_step=step)
         attn, mlp = self.attn, self.mlp
         lp = params["layers"]
         h = params["embed"][ids.long()]                       # (B, L, d)
         for i in range(c.n_layers):
             la = {k: v[i] for k, v in lp["attn"].items()}
             lm = {k: v[i] for k, v in lp["mlp"].items()}
+            if kv_scales is not None:
+                attn_kw["kv_scales"] = (kv_scales[0][i], kv_scales[1][i])
             resid = h
             hn = nn.rms_norm(h, lp["input_norm"][i], c.rms_eps)
             fwd = attn.dist_fwd if mode == "dist" else attn.xla_fwd
-            h = resid + fwd(la, hn, k_cache[i], v_cache[i], offset)
+            h = resid + fwd(la, hn, k_cache[i], v_cache[i], offset, **attn_kw)
             resid = h
             flat = nn.rms_norm(h, lp["post_norm"][i],
                                c.rms_eps).reshape(-1, c.d_model)
             m = (mlp.dist_fwd(lm, flat) if mode == "dist"
                  else mlp.xla_fwd(lm, flat))
             h = resid + m.reshape(h.shape)
-        last = nn.rms_norm(h[:, -1], params["final_norm"], c.rms_eps)
+        if seq_lens is None:
+            last = h[:, -1]
+        else:
+            idx = torch.clamp(seq_lens.long() - 1, min=0)
+            last = h[torch.arange(h.shape[0], device=h.device), idx]
+        last = nn.rms_norm(last, params["final_norm"], c.rms_eps)
         lm_head = (params["embed"].T if c.tie_embeddings
                    else params["lm_head"])
         # Operands in their stored dtype, products summed in f32: the JAX
