@@ -13,13 +13,21 @@ script exits non-zero without its result line:
    the paged kernel at Qwen3-1.7B geometry for a decode and a ragged mixed
    step over bf16, int8 and fp8 pools (shuffled tables, a dead slot, NaN
    in every block no live table reaches), each live slot held at 1% (decode)
-   or 2% (mixed) of its own max |output|;
-2. small fp32 engines (``tiny`` and a head_dim-128 config):
+   or 2% (mixed) of its own max |output|; the attention kernels again at
+   Qwen3-30B-A3B's GQA group of 8 (32 query heads, 4 kv heads); the grouped
+   GEMM at Qwen3-30B-A3B's expert shapes (gate_up 2,048 -> 1,536, down 768
+   -> 2,048) at the capacities phase 3c serves (16, 2,048 and 8,192) and
+   those of the default capacity factor (256, 1,024), with counts from a
+   seeded top-8 routing (leading, trailing and consecutive empty experts),
+   NaN in every weight of an empty expert and in every row past a count,
+   empty experts exactly zero; plus a layer-stacked and a small fp32 case;
+2. small fp32 engines (``tiny``, a head_dim-128 config and ``tiny-moe``):
    ``Engine(mode="dist")`` must produce the same tokens as
    ``Engine(mode="xla")`` (prefill M = 64 goes through the matmul kernel);
    ``BatchEngine`` must produce each request's per-request ``Engine``
    tokens with chunked prefill and a forced preemption, and its int8/fp8
-   pools must give the same tokens warm (prefix cache hit) as cold;
+   pools must give the same tokens warm (prefix cache hit) as cold; both
+   serving steps run with no host read-back;
 3. full width, slice 1: Qwen3-1.7B (28 layers, bf16, random weights from a
    seed) serves 4 requests of 2,048 prompt tokens and 64 new tokens
    through ``Engine.serve``; the kernels' launch counts are reset just
@@ -33,9 +41,24 @@ script exits non-zero without its result line:
    step, matmul 4 x 28 per mixed step, the flash kernels none), and one
    mixed step's logits through the kernels are held against the xla
    golden's gather oracle (same bars as phase 3);
+3c. full width, slice 3: Qwen3-30B-A3B (48 layers, 128 experts, top-8,
+   bf16, random weights from a seed) serves 4 requests of 2,048 prompt
+   tokens and 32 new tokens through ``Engine.serve`` (exact launch counts:
+   grouped GEMM 2 x 48 x 32, matmul 2 x 48, flash prefill 48, flash decode
+   48 x 31) at the dropless capacity factor 16 (the drop audit prints the
+   factors below it), every capacity it serves one that phase 1 held; the
+   prefill logits with the dist path's expert choices replayed in the
+   golden and one MoE block at layers 0 and 24 on the same hidden states
+   are held against the xla golden (phase 3's bars), and the free-running
+   prefill logits within 1.5x the drift of a witness (the golden's dense
+   attention with P rounded to bf16, as the kernel rounds it: random
+   weights make the router chaotic at depth); then ``BatchEngine`` on a
+   bf16 pool with phase 3b's requests (paged 48 and grouped GEMM 2 x 48
+   per step, matmul 2 x 48 per mixed step);
 4. times of each kernel, its plain version and one PyTorch call computing
    the same function (CUDA events, L2 flushed before each launch), beside
-   the least time the card could take for the same work.
+   the least time the card could take for the same work; the grouped GEMM
+   at the three capacities phase 3c serves.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -44,6 +67,8 @@ means a non-zero exit and no result.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -94,9 +119,38 @@ PAGED_SLOT_TOL = {"decode": 1e-2, "mixed": 2e-2}
 SERVE = dict(n_slots=8, block_size=16, prefill_chunk=256, max_seq_len=4096)
 SERVE_REQUESTS, SERVE_GEN, SHARED_PREFIX = 16, 32, 1024
 
+# Qwen3-30B-A3B (slice 3): GQA group 8, and the expert GEMMs of its MoE FFN.
+GQA8 = dict(Hq=32, Hkv=4)
+MOE_E, MOE_K, MOE_D, MOE_FF = 128, 8, 2048, 768
+GROUPED = {"gate_up": (MOE_D, 2 * MOE_FF), "down": (MOE_FF, MOE_D)}
+# Phase 3c serves at the capacity factor n_experts / top-k: every expert's
+# capacity is then every token of the step, so nothing can drop (the golden
+# has no capacity). Tokens routed by the steps it serves: a decode of 8
+# slots, a mixed step of 8 x 256 and a prefill of 4 x 2,048. Their grids'
+# capacities (MoEMLP._capacities at that factor: 16, 2,048 and 8,192) are
+# where phases 1 and 4 hold and time the grouped GEMM; phase 1 adds those of
+# the default factor 2 (256 and 1,024).
+MOE_FACTOR = MOE_E / MOE_K
+MOE_STEP_TOKENS = (8, 8 * 256, B * L0)
+# Free-running prefill logits may drift from the golden by at most this
+# multiple of the drift of a witness: the golden's dense attention with P
+# rounded to bf16, as the flash-prefill kernel rounds it.
+MOE_DRIFT_MARGIN = 1.5
+# Experts no token may pick: leading, consecutive and trailing empties.
+EMPTY_EXPERTS = (0, 1, 5, 6, 7, 126, 127)
+MOE_GEN, MOE_LAYERS_CHECKED = 32, (0, 24)
+
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def free_card() -> None:
+    """Return the memory of dropped engines to the card. An engine and its
+    steps hold reference cycles, so ``del`` alone leaves their weights and
+    pools allocated until the cyclic collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line() -> str:
@@ -234,12 +288,13 @@ def phase_kernels(gen, tg, tsp):
     return err, inputs
 
 
-def paged_case(gen, quantize, *, L, kv_lens, q_lens, dead, kv):
+def paged_case(gen, quantize, *, L, kv_lens, q_lens, dead, kv,
+               heads=(PAGED["Hq"], PAGED["Hkv"])):
     """Operands of ``paged_attention`` on the card: a shuffled pool with
     NaN in every block no live table reaches (NaN scales for int8/fp8),
     the dead slot's stale table naming live blocks, bf16 queries."""
-    Hq, Hkv, dh, bs, mb = (PAGED[k] for k in
-                           ("Hq", "Hkv", "dh", "bs", "max_blocks"))
+    (Hq, Hkv), dh, bs, mb = heads, PAGED["dh"], PAGED["bs"], PAGED[
+        "max_blocks"]
     B = len(kv_lens)
     n_blocks = B * mb + 3
     perm = torch.randperm(n_blocks - 1, generator=torch.Generator()
@@ -272,24 +327,29 @@ def paged_case(gen, quantize, *, L, kv_lens, q_lens, dead, kv):
     return c
 
 
+def check_paged(label, tpa, c, name, geo):
+    """One paged case against the plain version: live rows finite,
+    padding rows zero, each live slot within its bar."""
+    live = [b for b in range(8) if b not in geo["dead"]]
+    got = tpa.paged_attention(**c)
+    want = tpa.paged_attention_ref(**c)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got[live]).all():
+        raise AssertionError(f"{label}: NaN reached a live row")
+    for b in live:
+        if not (got[b, geo["q_lens"][b]:] == 0).all():
+            raise AssertionError(f"{label}: padding rows of slot {b} are "
+                                 f"not zeros")
+    return check_slots(label, got, want, live, PAGED_SLOT_TOL[name])
+
+
 def phase_paged_kernel(gen, tpa, quantize):
     err, inputs = 0.0, {}
     for name, geo in PAGED_CASES.items():
-        live = [b for b in range(8) if b not in geo["dead"]]
         for kv in POOLS:
             c = paged_case(gen, quantize, kv=kv, **geo)
-            got = tpa.paged_attention(**c)
-            want = tpa.paged_attention_ref(**c)
-            torch.cuda.synchronize()
-            if not torch.isfinite(got[live]).all():
-                raise AssertionError(f"paged {name} {kv}: NaN reached a "
-                                     f"live row")
-            for b in live:
-                if not (got[b, geo["q_lens"][b]:] == 0).all():
-                    raise AssertionError(f"paged {name} {kv}: padding rows "
-                                         f"of slot {b} are not zeros")
-            e, worst = check_slots(f"paged_attention {name} {kv}", got, want,
-                                   live, PAGED_SLOT_TOL[name])
+            e, worst = check_paged(f"paged_attention {name} {kv}", tpa, c,
+                                   name, geo)
             err = max(err, e)
             inputs[(name, kv)] = c
             say(f"phase 1: paged_attention {name} L={geo['L']} kv_lens "
@@ -298,6 +358,180 @@ def phase_paged_kernel(gen, tpa, quantize):
                 f"max_abs_err={e:.4g}, worst slot's max err / max |want| "
                 f"{worst:.4g} (bar {PAGED_SLOT_TOL[name]})")
     return err, inputs
+
+
+def phase_gqa8(gen, tsp, tpa):
+    """The three attention kernels at Qwen3-30B-A3B's heads: 32 query heads
+    over 4 kv heads (a GQA group of 8), head_dim 128."""
+    Hq, Hkv = GQA8["Hq"], GQA8["Hkv"]
+    err = {}
+    q = randn(gen, 2, L0, Hq, DH)
+    k, v = randn(gen, 2, S, Hkv, DH), randn(gen, 2, S, Hkv, DH)
+    k[:, L0:] = float("nan")
+    v[:, L0:] = float("nan")
+    out = tsp.flash_prefill(q, k, v, offset=0)
+    if not torch.isfinite(out).all():
+        raise AssertionError("flash prefill (GQA 8) let the NaN tail in")
+    err["flash_prefill"] = check_close(
+        "flash_prefill GQA 8", out, tsp.flash_prefill_ref(q, k, v, offset=0),
+        torch.bfloat16)
+    say(f"phase 1: flash_prefill GQA 8: B=2 L={L0} Hq={Hq} Hkv={Hkv} "
+        f"dh={DH} S={S}, NaN tail, bf16 max_abs_err="
+        f"{err['flash_prefill']:.4g}")
+    del q, k, v, out
+    qd = randn(gen, B, Hq, DH)
+    kd, vd = randn(gen, B, S, Hkv, DH), randn(gen, B, S, Hkv, DH)
+    for row, n in enumerate(DECODE_KV_LENS):
+        kd[row, n:] = float("nan")
+        vd[row, n:] = float("nan")
+    kv_len = torch.tensor(DECODE_KV_LENS, dtype=torch.int32, device="cuda")
+    o, lse = tsp.flash_decode_local(qd, kd, vd, kv_len=kv_len,
+                                    kv_layout="bshd")
+    ro, rlse = tsp.flash_decode_ref(qd, kd, vd, kv_len=kv_len,
+                                    kv_layout="bshd")
+    err["flash_decode"] = max(
+        check_close("flash_decode GQA 8 out", o, ro, torch.float32),
+        check_close("flash_decode GQA 8 lse", lse, rlse, torch.float32))
+    say(f"phase 1: flash_decode GQA 8: B={B} Hq={Hq} Hkv={Hkv} kv_len "
+        f"{DECODE_KV_LENS} bshd, bf16 in, f32 out max_abs_err="
+        f"{err['flash_decode']:.4g}")
+    err["paged_attention"] = 0.0
+    for name, geo in PAGED_CASES.items():
+        c = paged_case(gen, None, kv=None, heads=(Hq, Hkv), **geo)
+        e, worst = check_paged(f"paged_attention GQA 8 {name}", tpa, c,
+                               name, geo)
+        err["paged_attention"] = max(err["paged_attention"], e)
+        say(f"phase 1: paged_attention GQA 8 {name}: Hq={Hq} Hkv={Hkv}, "
+            f"bf16 pool: max_abs_err={e:.4g}, worst slot's max err / max "
+            f"|want| {worst:.4g} (bar {PAGED_SLOT_TOL[name]})")
+    return err
+
+
+def moe_caps(MoEMLP, factor: float) -> dict:
+    """{grid capacity: tokens} of the steps of ``MOE_STEP_TOKENS`` at
+    Qwen3-30B-A3B's widths and capacity ``factor``, sized by the port's own
+    ``MoEMLP._capacities``."""
+    mlp = MoEMLP(d_model=MOE_D, d_ff=MOE_FF, n_experts=MOE_E, topk=MOE_K,
+                 capacity_factor=factor)
+    return {mlp._capacities(n)[1]: n for n in MOE_STEP_TOKENS}
+
+
+class CapacitySpy:
+    """Records the grid capacity of every grouped-GEMM call the MoE path
+    makes while active (the launch counts stay the wrapper's own)."""
+
+    def __init__(self, tmu):
+        self.tmu, self.real, self.caps = tmu, tmu.grouped_gemm_skip, set()
+
+    def __enter__(self):
+        def spy(grouped, *args, **kw):
+            self.caps.add(grouped.shape[1])
+            return self.real(grouped, *args, **kw)
+
+        self.tmu.grouped_gemm_skip = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tmu.grouped_gemm_skip = self.real
+
+    def check(self, label, held):
+        say(f"{label}: grouped GEMM capacities served {sorted(self.caps)}, "
+            f"held against the plain version in phase 1 {sorted(held)}")
+        if not self.caps <= set(held):
+            raise AssertionError(f"{label}: capacities "
+                                 f"{sorted(self.caps - set(held))} were "
+                                 f"served but not held in phase 1")
+
+
+def moe_counts(cap: int, tokens: int) -> torch.Tensor:
+    """Rows per expert of a seeded top-8 routing of ``tokens`` tokens over
+    128 experts that never picks one of ``EMPTY_EXPERTS``, clamped to
+    ``cap`` (what ``route_to_experts`` gives the grouped GEMM)."""
+    g = torch.Generator(device="cuda").manual_seed(cap)
+    scores = torch.rand(tokens, MOE_E, generator=g, device="cuda")
+    scores[:, list(EMPTY_EXPERTS)] = -1.0
+    ids = torch.topk(scores, MOE_K, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(ids, minlength=MOE_E)
+    return torch.clamp(counts, max=cap).to(torch.int32)
+
+
+def grouped_case(counts, cap, d, f, dtype=torch.bfloat16, n_layers=None,
+                 seed=0):
+    """Operands of the grouped GEMM: ``x`` (E, cap, d) with NaN in every row
+    past its expert's count, ``x_clean`` the same with those rows zero (what
+    the grid contract says they hold: the plain version's input), and
+    weights (E, d, f), or (n_layers, E, d, f), with NaN in every weight of
+    an empty expert."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E = counts.shape[0]
+    past = (torch.arange(cap, device="cuda")[None, :]
+            >= counts[:, None])[..., None]
+    x_clean = randn(gen, E, cap, d, dtype=dtype).masked_fill(past, 0.0)
+    x = x_clean.masked_fill(past, float("nan"))
+    lead = () if n_layers is None else (n_layers,)
+    w = randn(gen, *lead, E, d, f, dtype=dtype, scale=d ** -0.5)
+    w[..., counts == 0, :, :] = float("nan")
+    return x, x_clean, w
+
+
+def check_grouped(label, tmu, counts, x, x_clean, w, layer_idx=None):
+    got = tmu.grouped_gemm_skip(x, w, counts, layer_idx=layer_idx)
+    want = tmu.grouped_gemm_skip_ref(x_clean, w, counts, layer_idx=layer_idx)
+    torch.cuda.synchronize()
+    cap = x.shape[1]
+    past = torch.arange(cap, device="cuda")[None, :] >= counts[:, None]
+    err = 0.0
+    # 16 experts at a time: the f32 copies of a whole (128, 8,192, 2,048)
+    # output would not fit beside it.
+    for e in range(0, x.shape[0], 16):
+        g = got[e:e + 16]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label}: NaN of an unread row or weight "
+                                 f"reached the output")
+        if not ((g[counts[e:e + 16] == 0] == 0).all()
+                and (g[past[e:e + 16]] == 0).all()):
+            raise AssertionError(f"{label}: an empty expert or a row past "
+                                 f"its count is not exactly zero")
+        err = max(err, check_close(label, g, want[e:e + 16], x.dtype))
+    return err
+
+
+def phase_grouped_gemm(tmu, caps):
+    """The grouped GEMM against its plain version at Qwen3-30B-A3B's expert
+    shapes and the steps' capacities ``caps`` ({capacity: tokens})."""
+    err = 0.0
+    for cap, tokens in sorted(caps.items()):
+        counts = moe_counts(cap, tokens)
+        n_live = int((counts > 0).sum())
+        for name, (d, f) in GROUPED.items():
+            x, x_clean, w = grouped_case(counts, cap, d, f, seed=cap + d)
+            e = check_grouped(f"grouped_gemm {name} cap {cap}", tmu, counts,
+                              x, x_clean, w)
+            err = max(err, e)
+            say(f"phase 1: grouped_gemm {name} E={MOE_E} cap={cap} d={d} "
+                f"f={f} bf16, {tokens} tokens x top-{MOE_K} -> {n_live} "
+                f"non-empty experts, {int(counts.sum())} rows: "
+                f"max_abs_err={e:.4g}, empty experts and rows past counts "
+                f"exactly 0, NaN never read")
+            del x, x_clean, w
+    counts = moe_counts(16, 8)
+    d, f = GROUPED["down"]
+    x, x_clean, w = grouped_case(counts, 16, d, f, n_layers=3, seed=1)
+    e = check_grouped("grouped_gemm stacked", tmu, counts, x, x_clean, w,
+                      layer_idx=2)
+    err = max(err, e)
+    say(f"phase 1: grouped_gemm stacked (3, {MOE_E}, {d}, {f}) layer_idx 2 "
+        f"cap 16 bf16: max_abs_err={e:.4g}")
+    del x, x_clean, w
+    counts = torch.tensor([0, 0, 3, 0, 40, 17, 0, 0], dtype=torch.int32,
+                          device="cuda")
+    x, x_clean, w = grouped_case(counts, 40, 72, 136, dtype=torch.float32,
+                                 seed=2)
+    e = check_grouped("grouped_gemm fp32", tmu, counts, x, x_clean, w)
+    err = max(err, e)
+    say(f"phase 1: grouped_gemm fp32 E=8 cap=40 d=72 f=136 counts "
+        f"{counts.tolist()}: max_abs_err={e:.4g}")
+    return err
 
 
 def check_slots(name, got, want, live, frac):
@@ -318,13 +552,16 @@ def check_slots(name, got, want, live, frac):
 
 def phase_small_engines(Engine, BatchEngine, ModelConfig, kernels):
     configs = {
-        "tiny": {},
-        "dh128": dict(d_model=256, n_heads=4, n_kv_heads=2, head_dim=128,
-                      d_ff=512, vocab_size=512, max_length=64,
-                      tie_embeddings=True),
+        "tiny": ("tiny", {}),
+        "dh128": ("tiny", dict(d_model=256, n_heads=4, n_kv_heads=2,
+                               head_dim=128, d_ff=512, vocab_size=512,
+                               max_length=64, tie_embeddings=True)),
+        # Capacities roomy enough for no drops: dist == xla needs them, and
+        # BatchEngine routes its padding rows too.
+        "tiny-moe": ("tiny-moe", dict(moe_capacity_factor=64.0)),
     }
-    for name, overrides in configs.items():
-        cfg = ModelConfig.from_name("tiny", **overrides)
+    for name, (preset, overrides) in configs.items():
+        cfg = ModelConfig.from_name(preset, **overrides)
         ids = torch.randint(0, cfg.vocab_size, (8, 8), device="cuda",
                             generator=torch.Generator(device="cuda")
                             .manual_seed(5), dtype=torch.int32)
@@ -337,7 +574,8 @@ def phase_small_engines(Engine, BatchEngine, ModelConfig, kernels):
         if not torch.equal(got, want):
             raise AssertionError(f"phase 2 {name}: dist tokens {got.tolist()}"
                                  f" != xla tokens {want.tolist()}")
-        if min(counts[k] for k in SLICE1_KERNELS) == 0:
+        used = SLICE1_KERNELS + (("grouped_gemm",) if cfg.n_experts else ())
+        if min(counts[k] for k in used) == 0:
             raise AssertionError(f"phase 2 {name}: a kernel never launched "
                                  f"{counts}")
         say(f"phase 2: {name} fp32 B=8 L0=8 gen 6: dist == xla tokens, "
@@ -439,7 +677,7 @@ def phase_full_width(Engine, ModelConfig, kernels):
     launches = {k: v.launches for k, v in kernels.KERNELS.items()}
     expected = {"matmul": 4 * cfg.n_layers, "flash_prefill": cfg.n_layers,
                 "flash_decode": cfg.n_layers * (GEN - 1),
-                "paged_attention": 0}
+                "paged_attention": 0, "grouped_gemm": 0}
     say(f"phase 3: serve B={B} L0={L0} gen={GEN} launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -456,15 +694,8 @@ def phase_full_width(Engine, ModelConfig, kernels):
     ttft = time.perf_counter() - t0
     xla = Engine(cfg, mode="xla", device="cuda", params=eng.params)
     x_logits, _ = xla.prefill(ids, xla.new_cache(B))
-    if not (torch.isfinite(logits).all() and torch.isfinite(x_logits).all()):
-        raise AssertionError("non-finite prefill logits")
-    cos = torch.nn.functional.cosine_similarity(logits, x_logits, dim=-1)
-    diff = (logits - x_logits).abs().max().item()
-    top = x_logits.abs().max().item()
-    say(f"phase 3: prefill logits dist vs xla: min cosine "
-        f"{cos.min().item():.6f}, max |diff| {diff:.4g} = "
-        f"{100 * diff / top:.3f}% of max |logit| {top:.4g}")
-    if cos.min().item() < 0.999 or diff > 0.05 * top:
+    if not golden_bars("phase 3: prefill logits dist vs xla", logits,
+                       x_logits):
         raise AssertionError("prefill logits disagree with the xla golden")
     if not torch.equal(first.to(torch.int32), tokens[:, 0]):
         say("phase 3: note: first token of serve differs from the re-run "
@@ -529,29 +760,55 @@ def logits_fused_vs_gather(eng, golden, BatchEngine, prompts, kv):
                            lambda: step(ops[0], pool, *ops[1:]), 1)
         del pool
     live = ops[-1] > 0
-    fused, gather = logits["fused"][live], logits["gather"][live]
-    if not (torch.isfinite(fused).all() and torch.isfinite(gather).all()):
-        raise AssertionError(f"phase 3b {kv}: non-finite mixed-step logits")
-    cos = torch.nn.functional.cosine_similarity(fused, gather, dim=-1)
-    diff = (fused - gather).abs().max().item()
-    top = gather.abs().max().item()
-    say(f"phase 3b: {kv or 'bf16'} pool, one mixed step's logits, fused vs "
-        f"gather: min cosine {cos.min().item():.6f}, max |diff| {diff:.4g} "
-        f"= {100 * diff / top:.3f}% of max |logit| {top:.4g}")
-    if cos.min().item() < 0.999 or diff > 0.05 * top:
+    if not golden_bars(f"phase 3b: {kv or 'bf16'} pool, one mixed step's "
+                       f"logits, fused vs gather", logits["fused"][live],
+                       logits["gather"][live]):
         raise AssertionError(f"phase 3b {kv}: fused logits disagree with "
                              f"the gather oracle")
 
 
-def phase_serving(eng, Engine, BatchEngine, kernels):
-    """The slice-2 main path at full width, once per pool dtype."""
+def moe_mixed_step(eng, BatchEngine, prompts, phase):
+    """One MoE mixed step (8 rows after two chunks): its device profile, and
+    the (token, expert) pairs its static capacities drop. Padding rows are
+    routed as the JAX stack routes them and take expert capacity."""
+    be = BatchEngine(eng, **SERVE)
+    for p in prompts[:SERVE["n_slots"]]:
+        be.submit(p, SERVE_GEN)
+    be.step()
+    be.step()
+    ids, offsets, tables, mask, seq_lens = be.mixed_operands()
+    step = eng.make_paged_step("prefill")
+    pool = be.pool.state
+    device_profile(phase, f"bf16 mixed step, 8 rows x "
+                   f"{SERVE['prefill_chunk']} tokens",
+                   lambda: step(ids, pool, offsets, tables, mask, seq_lens),
+                   1)
+    with torch.inference_mode():
+        _, stats = eng.model.forward(
+            eng.params, ids, pool.k, pool.v, offsets, mode="dist",
+            seq_lens=seq_lens, block_tables=tables, slot_mask=mask,
+            return_moe_stats=True)
+    say(f"{phase}: that mixed step routes {ids.numel()} rows "
+        f"({int(seq_lens.sum())} live): drops summed over layers "
+        f"{ {k: int(v) for k, v in stats.items()} }")
+
+
+def phase_serving(eng, Engine, BatchEngine, kernels, pools=POOLS,
+                  phase="phase 3b"):
+    """The serving main path at full width, once per pool dtype. A dense
+    model's mixed step is held against the gather oracle; an MoE model's
+    is profiled and audited for drops."""
     prompts = serving_prompts(eng.config.vocab_size)
-    L = eng.config.n_layers
-    golden = Engine(eng.config, mode="xla", device=eng.device, params=eng.params)
+    L, moe = eng.config.n_layers, bool(eng.config.n_experts)
+    golden = (None if moe else Engine(eng.config, mode="xla",
+                                      device=eng.device, params=eng.params))
     tokens, all_launches = {}, {}
-    for kv in POOLS:
-        logits_fused_vs_gather(eng, golden, BatchEngine, prompts, kv)
-        torch.cuda.empty_cache()
+    for kv in pools:
+        if moe:
+            moe_mixed_step(eng, BatchEngine, prompts, phase)
+        else:
+            logits_fused_vs_gather(eng, golden, BatchEngine, prompts, kv)
+        free_card()
         be = BatchEngine(eng, kv_dtype=kv, **SERVE)
         times = {"decode": [], "mixed": []}
         profiled, untimed_tokens = False, 0
@@ -573,7 +830,7 @@ def phase_serving(eng, Engine, BatchEngine, kernels):
                     # is a decode step too.
                     profiled = True
                     tok0 = be.metrics["tokens_generated"]
-                    device_profile("phase 3b", f"{kv or 'bf16'} decode step",
+                    device_profile(phase, f"{kv or 'bf16'} decode step",
                                    be.step, 1)
                     untimed_tokens += be.metrics["tokens_generated"] - tok0
 
@@ -587,29 +844,31 @@ def phase_serving(eng, Engine, BatchEngine, kernels):
         launches = {k: v.launches for k, v in kernels.KERNELS.items()}
         m = be.metrics
         steps = m["decode_steps"] + m["prefill_steps"]
-        expected = {"matmul": 4 * L * m["prefill_steps"], "flash_prefill": 0,
-                    "flash_decode": 0, "paged_attention": L * steps}
-        say(f"phase 3b: {kv or 'bf16'} pool: {m['requests_completed']} "
+        expected = {"matmul": (2 if moe else 4) * L * m["prefill_steps"],
+                    "grouped_gemm": 2 * L * steps if moe else 0,
+                    "flash_prefill": 0, "flash_decode": 0,
+                    "paged_attention": L * steps}
+        say(f"{phase}: {kv or 'bf16'} pool: {m['requests_completed']} "
             f"requests, {m['decode_steps']} decode + {m['prefill_steps']} "
             f"mixed steps, launches {launches} (expected {expected})")
         if launches != expected:
-            raise AssertionError(f"phase 3b {kv}: launch counts {launches} "
+            raise AssertionError(f"{phase} {kv}: launch counts {launches} "
                                  f"!= {expected}")
         out = be.finished
         if (sorted(out) != sorted(rids)
                 or any(len(out[r].output) != SERVE_GEN for r in rids)):
-            raise AssertionError(f"phase 3b {kv}: not every request "
+            raise AssertionError(f"{phase} {kv}: not every request "
                                  f"finished with {SERVE_GEN} tokens")
         if not all(0 <= t < eng.config.vocab_size
                    for r in rids for t in out[r].output):
-            raise AssertionError(f"phase 3b {kv}: token ids out of range")
+            raise AssertionError(f"{phase} {kv}: token ids out of range")
         if m["prefix_hits"] == 0:
-            raise AssertionError(f"phase 3b {kv}: no prefix-cache hit")
+            raise AssertionError(f"{phase} {kv}: no prefix-cache hit")
         tokens[kv] = [out[r].output for r in rids]
         wall = sum(times["decode"]) + sum(times["mixed"])
         agree = sum(a == b for x, y in zip(tokens[kv], tokens[None])
                     for a, b in zip(x, y)) / (SERVE_REQUESTS * SERVE_GEN)
-        say(f"phase 3b: {kv or 'bf16'} pool: generated "
+        say(f"{phase}: {kv or 'bf16'} pool: generated "
             f"{(m['tokens_generated'] - untimed_tokens) / wall:.1f} tokens/s"
             f" (timed steps; the profiled one left out), prompt "
             f"{m['prefill_tokens'] / max(sum(times['mixed']), 1e-9):.1f} "
@@ -624,16 +883,263 @@ def phase_serving(eng, Engine, BatchEngine, kernels):
         for k, n in launches.items():
             all_launches[k] = all_launches.get(k, 0) + n
         del be
-        torch.cuda.empty_cache()
+        free_card()
     return all_launches
 
 
-def decode_profile(eng, ids, steps: int = 4):
+# -- phase 3c ----------------------------------------------------------------
+
+def golden_bars(label, got, want) -> bool:
+    """Phase 3's bars, row by row: cosine >= 0.999 and max |diff| <= 5% of
+    max |want|. Prints the numbers; returns whether they held."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{label}: non-finite values")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min()
+    diff = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    say(f"{label}: min cosine {cos.item():.6f}, max |diff| {diff:.4g} = "
+        f"{100 * diff / top:.3f}% of max |want| {top:.4g}")
+    return cos.item() >= 0.999 and diff <= 0.05 * top
+
+
+def moe_inputs(eng, ids, MoEMLP, layers) -> dict:
+    """The hidden states entering the MoE block of each of ``layers`` during
+    one prefill of ``ids`` through ``eng`` (its own mode's path)."""
+    method = "dist_fwd" if eng.mode == "dist" else "xla_fwd"
+    real, seen, calls = getattr(MoEMLP, method), {}, [0]
+
+    def spy(self, params, x, **kw):
+        if calls[0] in layers:
+            seen[calls[0]] = x.clone()
+        calls[0] += 1
+        return real(self, params, x, **kw)
+
+    setattr(MoEMLP, method, spy)
+    try:
+        eng.prefill(ids, eng.new_cache(ids.shape[0]))
+    finally:
+        setattr(MoEMLP, method, real)
+    return seen
+
+
+@torch.inference_mode()
+def moe_block_check(eng, ids, MoEMLP) -> None:
+    """One MoE block, ``dist_fwd`` (the grouped-GEMM kernel) against
+    ``xla_fwd``, on the same real hidden states: the same routing, so this
+    isolates the kernel and the capacity grid."""
+    mlp, lp = eng.model.mlp, eng.params["layers"]["mlp"]
+    for i, x in moe_inputs(eng, ids, MoEMLP, MOE_LAYERS_CHECKED).items():
+        stacked = {"router": lp["router"][i], "w_gate_up": lp["w_gate_up"],
+                   "w_down": lp["w_down"]}
+        got, stats = mlp.dist_fwd(stacked, x, return_stats=True, layer_idx=i)
+        want = mlp.xla_fwd({k: v[i] for k, v in lp.items()}, x)
+        drops = {k: int(v) for k, v in stats.items()}
+        if not golden_bars(f"phase 3c: MoE block of layer {i} on its prefill "
+                           f"hidden states ({x.shape[0]} tokens, drops "
+                           f"{drops}), dist vs xla", got, want):
+            raise AssertionError(f"phase 3c: MoE block of layer {i} "
+                                 f"disagrees with the xla golden")
+
+
+@torch.inference_mode()
+def replayed_prefill_logits(eng, xla, ids, MoEMLP):
+    """Prefill logits of the dist path and of the golden with the dist
+    path's expert choices replayed: each layer's golden routing takes the
+    top-k set the dist run chose there (the golden weighs it with its own
+    router probabilities). Random weights make the router chaotic at depth
+    (any attention other than the golden's own, float64 included, flips
+    top-8 choices by layer 24: ``scripts/torch_moe_drift.py``), so only
+    with the same choices do the logits measure the kernels."""
+    real, chosen = MoEMLP.route, []
+
+    def record(self, router, x):
+        w, sel = real(self, router, x)
+        chosen.append(sel)
+        return w, sel
+
+    def replay(self, router, x):
+        sel = next(choices)
+        w = torch.softmax(x.float() @ router.float(), dim=-1).gather(
+            -1, sel.long())
+        return (w / w.sum(dim=-1, keepdim=True) if self.norm_topk_prob
+                else w), sel
+
+    out = []
+    for engine, spy in ((eng, record), (xla, replay)):
+        choices = iter(chosen)
+        MoEMLP.route = spy
+        try:
+            out.append(engine.prefill(ids, engine.new_cache(ids.shape[0]))[0])
+        finally:
+            MoEMLP.route = real
+    return out
+
+
+def dense_attention(q, k, v, *, offset, scale, p_dtype=torch.bfloat16,
+                    acc=torch.float32, **_):
+    """Causal GQA attention from ``offset`` with sums in ``acc`` and P cast
+    to ``p_dtype`` before the P V product (by default the flash-prefill
+    kernel's rounding with the golden's f32 sums); one batch row at a time,
+    so the scores of a 4 x 2,048 prefill fit beside the weights. The
+    signature of ``nn.flash_prefill`` on a contiguous (B, S, Hkv, dh)
+    cache."""
+    L, hq, dh = q.shape[1:]
+    S, hkv = k.shape[1], k.shape[2]
+    pos = offset + torch.arange(L, device=q.device)
+    mask = torch.arange(S, device=q.device)[None, :] <= pos[:, None]
+    out = torch.empty_like(q)
+    for b in range(q.shape[0]):
+        qr = q[b].to(acc).reshape(L, hkv, hq // hkv, dh)
+        s = torch.einsum("lhgd,shd->lhgs", qr, k[b].to(acc)) * scale
+        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = torch.einsum("lhgs,shd->lhgd", p.to(p_dtype).to(acc),
+                         v[b].to(acc))
+        out[b] = (o / p.sum(-1, keepdim=True)).reshape(L, hq, dh)
+    return out
+
+
+def drift(got, want) -> tuple[float, float]:
+    """(1 - min cosine, max |diff| / max |want|) of two logit sets."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("phase 3c: non-finite logits")
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min()
+    return (1.0 - cos.item(),
+            ((got - want).abs().max() / want.abs().max()).item())
+
+
+def free_running_gate(logits, witness, golden) -> None:
+    """The kernels' free-running prefill logits against the golden, held at
+    ``MOE_DRIFT_MARGIN`` times the witness's drift, on both measures."""
+    got, wit = drift(logits, golden), drift(witness, golden)
+    say(f"phase 3c: free-running prefill logits vs xla: kernels min cosine "
+        f"{1 - got[0]:.6f}, max |diff| {100 * got[1]:.3f}% of max |want|; "
+        f"witness (dense attention, P in bf16) {1 - wit[0]:.6f}, "
+        f"{100 * wit[1]:.3f}%; bar {MOE_DRIFT_MARGIN} x the witness's drift")
+    if got[0] > MOE_DRIFT_MARGIN * wit[0] or got[1] > MOE_DRIFT_MARGIN * wit[1]:
+        raise AssertionError("phase 3c: free-running prefill logits drift "
+                             "further from the golden than the witness "
+                             "allows")
+
+
+@torch.inference_mode()
+def top8_sets_differ(eng, xla, ids, MoEMLP, layer: int) -> int:
+    """How many tokens pick another top-8 expert set at ``layer`` on the
+    dist path's hidden states than on the xla path's."""
+    router = eng.params["layers"]["mlp"]["router"][layer]
+    sets = [eng.model.mlp.route(router, moe_inputs(e, ids, MoEMLP,
+                                                   (layer,))[layer])[1]
+            .sort(dim=-1).values for e in (eng, xla)]
+    return int((sets[0] != sets[1]).any(dim=-1).sum())
+
+
+def phase_moe_full_width(Engine, ModelConfig, kernels, MoEMLP, nn, tmu,
+                         held_caps):
+    """Slice 3: Qwen3-30B-A3B at full width through ``Engine.serve``.
+    ``held_caps``: the grid capacities phase 1 held the grouped GEMM at."""
+    cfg = ModelConfig.from_name("qwen3-30b-a3b")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # A cache just long enough: 0.8 GiB of KV instead of 1.6 next to ~57 GiB
+    # of experts and a prefill's capacity grids.
+    eng = Engine(cfg, mode="dist", device="cuda", seed=0,
+                 max_length=L0 + MOE_GEN)
+    torch.cuda.synchronize()
+    say(f"phase 3c: qwen3-30b-a3b ({L} layers, {cfg.n_experts} experts, "
+        f"top-{cfg.n_experts_per_tok}) random init "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ids = torch.randint(0, cfg.vocab_size, (B, L0), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(7), dtype=torch.int32)
+    # The capacity audit the JAX Engine documents, from the default factor
+    # up to the served one (MOE_FACTOR, dropless by construction: the golden
+    # has no capacity, so the bars below need a drop-free dist path).
+    while True:
+        drops = eng.moe_drop_stats(ids)
+        say(f"phase 3c: moe_drop_stats of the prompt at moe_capacity_factor "
+            f"{cfg.moe_capacity_factor}: {drops}")
+        if cfg.moe_capacity_factor >= MOE_FACTOR:
+            break
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=min(
+            2 * cfg.moe_capacity_factor, MOE_FACTOR))
+        eng = Engine(cfg, mode="dist", device="cuda", params=eng.params,
+                     max_length=L0 + MOE_GEN)
+    if any(drops.values()):
+        raise AssertionError(f"phase 3c: drops at the served factor "
+                             f"{MOE_FACTOR}: {drops}")
+    eng.serve(ids[:, :128], 2)  # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with CapacitySpy(tmu) as spy:
+        tokens = eng.serve(ids, MOE_GEN)
+        torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    spy.check("phase 3c: serve", held_caps)
+    expected = {"matmul": 2 * L, "grouped_gemm": 2 * L * MOE_GEN,
+                "flash_prefill": L, "flash_decode": L * (MOE_GEN - 1),
+                "paged_attention": 0}
+    say(f"phase 3c: serve B={B} L0={L0} gen={MOE_GEN} launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"phase 3c: launch counts {launches} != "
+                             f"{expected}")
+    if (tokens.shape != (B, MOE_GEN)
+            or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase 3c: tokens {tokens.shape} out of range")
+
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(ids, eng.new_cache(B))
+    torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    xla = Engine(cfg, mode="xla", device="cuda", params=eng.params,
+                 max_length=L0 + MOE_GEN)
+    x_logits, _ = xla.prefill(ids, xla.new_cache(B))
+    # Free-running, each path routing on its own hidden states. The router
+    # is chaotic at depth with random weights, so the bars are held against
+    # a witness's drift: the dist path with the golden's dense attention,
+    # P rounded to bf16 as the flash-prefill kernel rounds it.
+    shipped = nn.flash_prefill
+    nn.flash_prefill = dense_attention
+    try:
+        w_logits, _ = eng.prefill(ids, eng.new_cache(B))
+    finally:
+        nn.flash_prefill = shipped
+    free_running_gate(logits, w_logits, x_logits)
+    say(f"phase 3c: tokens whose top-8 expert set differs between the two "
+        f"free-running paths at layer 24: "
+        f"{top8_sets_differ(eng, xla, ids, MoEMLP, 24)} of {B * L0}")
+    del x_logits, w_logits, logits
+    if not golden_bars("phase 3c: prefill logits dist vs xla, the dist "
+                       "path's expert choices replayed in the golden",
+                       *replayed_prefill_logits(eng, xla, ids, MoEMLP)):
+        raise AssertionError("phase 3c: prefill logits disagree with the xla "
+                             "golden")
+    moe_block_check(eng, ids, MoEMLP)
+    del xla
+    decode_s = max(t_serve - ttft, 1e-9)
+    say(f"phase 3c: TTFT {ttft * 1e3:.2f} ms (prefill of {B}x{L0} + argmax), "
+        f"serve {t_serve:.3f} s, decode {B * (MOE_GEN - 1) / decode_s:.1f} "
+        f"tokens/s ({B} rows), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on "
+        f"{card_line()}")
+    decode_profile(eng, ids, phase="phase 3c")
+    return launches, eng
+
+
+def decode_profile(eng, ids, steps: int = 4, phase: str = "phase 3"):
     """Where the time goes: torch.profiler over one prefill and over a few
     decode steps after it, each summarised as wall time, device busy time
     and share, and the kernels that took the most device time."""
     kv = eng.new_cache(B)
-    device_profile("phase 3", "prefill", lambda: eng.prefill(ids, kv), 1)
+    device_profile(phase, "prefill", lambda: eng.prefill(ids, kv), 1)
     logits, kv = eng.prefill(ids, kv.clear())
     tok = torch.argmax(logits, dim=-1)
 
@@ -643,7 +1149,7 @@ def decode_profile(eng, ids, steps: int = 4):
         tok = torch.argmax(out, dim=-1)
 
     step()
-    device_profile("phase 3", "decode step", step, steps)
+    device_profile(phase, "decode step", step, steps)
 
 
 def device_profile(phase: str, label: str, fn, n: int):
@@ -811,6 +1317,43 @@ def paged_times(inputs, tpa, sp_gather):
     return out
 
 
+def grouped_times(tmu, caps):
+    """Phase 4 for the grouped GEMM at each served capacity of ``caps``
+    ({capacity: tokens}) and expert GEMM: the kernel, its plain version,
+    and ``torch.bmm`` over the same grid (what the JAX einsum does: every
+    expert's weights read). The bound counts what the function must move:
+    the non-empty experts' weights and the live rows read once, the whole
+    (E, cap, f) output written once (the zeros are part of it), and
+    2 * d * f operations per live row."""
+    timer = Timer("cuda")
+    rows = {}
+    for cap, tokens in sorted(caps.items()):
+        counts = moe_counts(cap, tokens)
+        n_live, n_rows = int((counts > 0).sum()), int(counts.sum())
+        for name, (d, f) in GROUPED.items():
+            x, x_clean, w = grouped_case(counts, cap, d, f, seed=cap + d)
+            t_k = timer(lambda: tmu.grouped_gemm_skip(x, w, counts), reps=20)
+            t_p = timer(lambda: tmu.grouped_gemm_skip_ref(x_clean, w, counts),
+                        reps=3)
+            t_l = timer(lambda: torch.bmm(x_clean, w), reps=20)
+            nbytes = 2 * (n_live * d * f + n_rows * d + MOE_E * cap * f) \
+                + 4 * MOE_E
+            t_b, by = bound_ms(2 * n_rows * d * f, nbytes, torch.bfloat16)
+            rows[(cap, name)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                     bound_ms=t_b, bound_by=by)
+            say(f"phase 4: grouped_gemm {name} cap {cap} ({n_live} non-empty "
+                f"experts, {n_rows} rows): kernel {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, torch.bmm {t_l:.4f} ms, bound {t_b:.4f} ms "
+                f"({by})")
+            del x, x_clean, w
+    # The record's row: both GEMMs at the three served capacities together.
+    out = {key: sum(r[key] for r in rows.values())
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
+                                     for r in rows.values()) else "operations"
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -821,8 +1364,11 @@ def main() -> int:
     from triton_distributed_tpu_torch import kernels
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+    from triton_distributed_tpu_torch.kernels import moe_utils as tmu
     from triton_distributed_tpu_torch.kernels import paged_attention as tpa
     from triton_distributed_tpu_torch.kernels import sp_attention as tsp
+    from triton_distributed_tpu_torch.layers import nn
+    from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
     from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
 
     t_start = time.perf_counter()
@@ -841,15 +1387,38 @@ def main() -> int:
     err, inputs = phase_kernels(gen, tg, tsp)
     err["paged_attention"], paged_inputs = phase_paged_kernel(
         gen, tpa, quantize_kv_rows)
+    for name, e in phase_gqa8(gen, tsp, tpa).items():
+        err[name] = max(err[name], e)
+    served_caps = moe_caps(MoEMLP, MOE_FACTOR)
+    held_caps = {**moe_caps(MoEMLP, ModelConfig.from_name(
+        "qwen3-30b-a3b").moe_capacity_factor), **served_caps}
+    err["grouped_gemm"] = phase_grouped_gemm(tmu, held_caps)
+    free_card()
     phase_small_engines(Engine, BatchEngine, ModelConfig, kernels)
     launches, eng = phase_full_width(Engine, ModelConfig, kernels)
     for name, n in phase_serving(eng, Engine, BatchEngine, kernels).items():
         launches[name] += n
+    # Qwen3-30B-A3B's ~57 GiB of weights fit beside nothing else.
     del eng
-    torch.cuda.empty_cache()
+    free_card()
+    moe_launches, eng = phase_moe_full_width(Engine, ModelConfig, kernels,
+                                             MoEMLP, nn, tmu, held_caps)
+    with CapacitySpy(tmu) as spy:
+        served = phase_serving(eng, Engine, BatchEngine, kernels,
+                               pools=(None,), phase="phase 3c")
+    spy.check("phase 3c: BatchEngine", held_caps)
+    for name, n in served.items():
+        moe_launches[name] += n
+    for name, n in moe_launches.items():
+        launches[name] += n
+    del eng
+    free_card()
+    say(f"phase 4: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated (phase 1's inputs)")
     times = phase_times(inputs, tg, tsp)
     times["paged_attention"] = paged_times(paged_inputs, tpa,
                                            tsp.paged_gather_kv)
+    times["grouped_gemm"] = grouped_times(tmu, served_caps)
 
     record = []
     for name, kern in kernels.KERNELS.items():

@@ -51,7 +51,8 @@ def case(request, mesh1):
     jcfg = JaxConfig.from_name("tiny", **overrides)
     tcfg = ModelConfig.from_name("tiny", **overrides)
     jparams = JaxQwen3(jcfg).init(jax.random.PRNGKey(0), mesh1)
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
     ids = np.random.default_rng(1).integers(0, tcfg.vocab_size, (B, L0)
                                             ).astype(np.int32)
     jeng = JaxEngine(jcfg, mesh=mesh1, mode="dist", params=jparams)
@@ -112,8 +113,15 @@ def test_modes_and_families_not_ported_raise():
     cfg = ModelConfig.from_name("tiny")
     with pytest.raises(ValueError, match="ar"):
         Engine(cfg, mode="ar", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(ModelConfig.from_name("tiny-moe"), device="cpu")
+    # An MoE FFN has no all-reduce mode, as in the JAX stack (qwen.py:340).
+    moe = ModelConfig.from_name("tiny-moe")
+    with pytest.raises(ValueError, match="ar"):
+        Engine(moe, mode="ar", device="cpu")
+    eng = Engine(moe, device="cpu")
+    kv = eng.new_cache(1)
+    with pytest.raises(ValueError, match="MoE"):
+        eng.model.forward(eng.params, torch.zeros((1, 2), dtype=torch.int32),
+                          kv.k, kv.v, 0, mode="ar")
 
 
 def test_top_p_keeps_the_same_token_set_as_jax():
@@ -187,7 +195,7 @@ def test_params_from_jax_carries_bf16_trees(mesh1):
                                  tie_embeddings=True)
     tree = jax.tree.map(np.asarray,
                         JaxQwen3(jcfg).init(jax.random.PRNGKey(2), mesh1))
-    params = params_from_jax(tree, tcfg)
+    params = params_from_jax(tree, tcfg, device="cpu")
     assert "lm_head" not in params
     assert params["embed"].dtype == torch.bfloat16
     assert params["layers"]["attn"]["q_norm"].dtype == torch.float32

@@ -15,6 +15,7 @@ import torch
 from triton_distributed_tpu_torch import BatchEngine, Engine, ModelConfig
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+from triton_distributed_tpu_torch.kernels import moe_utils as tmu
 from triton_distributed_tpu_torch.kernels import paged_attention as tpa
 from triton_distributed_tpu_torch.kernels import sp_attention as tsp
 from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
@@ -265,3 +266,83 @@ def test_serving_steps_never_read_back_to_the_host(cuda, kv):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("cap,d,f", [(16, 64, 256), (40, 72, 136),
+                                     (200, 128, 96)])
+def test_grouped_gemm_kernel_matches_plain(cuda, dtype, stacked, cap, d, f):
+    """Leading, trailing and consecutive empty experts, a full one, ragged
+    shapes; NaN in every row past a count and in every weight of an empty
+    expert, which the kernel must never read."""
+    gen = torch.Generator(device=cuda).manual_seed(cap)
+    counts = torch.tensor([0, 0, 3, 0, cap, 1, cap // 2 + 1, 0],
+                          dtype=torch.int32, device=cuda)
+    E = counts.shape[0]
+    past = (torch.arange(cap, device=cuda)[None, :] >= counts[:, None])
+    x_clean = _randn(gen, E, cap, d, dtype=dtype).masked_fill(
+        past[..., None], 0.0)
+    x = x_clean.masked_fill(past[..., None], float("nan"))
+    w = _randn(gen, *((3,) if stacked else ()), E, d, f, dtype=dtype)
+    w = w * d ** -0.5
+    w[..., counts == 0, :, :] = float("nan")
+    layer_idx = 1 if stacked else None
+    _build.reset_counts()
+    got = tmu.grouped_gemm_skip(x, w, counts, layer_idx=layer_idx)
+    torch.cuda.synchronize()
+    assert tmu.GROUPED_GEMM.launches == 1
+    assert torch.isfinite(got).all()
+    assert (got[counts == 0] == 0).all() and (got[past] == 0).all()
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        got, tmu.grouped_gemm_skip_ref(x_clean, w, counts,
+                                       layer_idx=layer_idx),
+        atol=tol, rtol=tol)
+
+
+def test_grouped_gemm_cuda_rejects_bad_operands(cuda):
+    g = torch.zeros(2, 16, 8, device=cuda)
+    w = torch.zeros(2, 8, 4, device=cuda)
+    with pytest.raises(ValueError, match="counts"):
+        tmu.grouped_gemm_skip(g, w, torch.ones(2, device=cuda))
+    with pytest.raises(TypeError, match="dtype"):
+        tmu.grouped_gemm_skip(g, w.bfloat16(),
+                              torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def test_moe_engine_dist_matches_xla_on_card(cuda):
+    cfg = ModelConfig.from_name("tiny-moe", moe_capacity_factor=64.0)
+    ids = torch.arange(64, dtype=torch.int32, device=cuda).reshape(8, 8) % 128
+    dist = Engine(cfg, mode="dist", device=cuda, seed=0)
+    xla = Engine(cfg, mode="xla", device=cuda, params=dist.params)
+    _build.reset_counts()
+    got = dist.serve(ids, 6)
+    assert tmu.GROUPED_GEMM.launches == 2 * cfg.n_layers * 6
+    torch.testing.assert_close(got, xla.serve(ids, 6), atol=0, rtol=0)
+    assert dist.moe_drop_stats(ids) == {"n_dropped_dispatch": 0,
+                                        "n_dropped_expert": 0}
+
+
+def test_moe_serving_steps_never_read_back_to_the_host(cuda):
+    """The MoE routing inside both serving steps reads nothing back to the
+    host either."""
+    cfg = ModelConfig.from_name("tiny-moe", moe_capacity_factor=64.0)
+    eng = Engine(cfg, mode="dist", device=cuda, seed=0)
+    be = BatchEngine(eng, n_slots=3, block_size=4, prefill_chunk=4)
+    for n in (7, 9, 5):
+        be.submit(list(range(1, n + 1)), 4)
+    be.step()
+    ids, *ops = be.mixed_operands()
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for paged, first in (("prefill", ids), ("decode", ids[:, :1])):
+            step = eng.make_paged_step(paged)
+            rest = ops if paged == "prefill" else ops[:-1]
+            torch.argmax(step(first, be.pool.state, *rest), dim=-1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tmu.GROUPED_GEMM.launches == 2 * 2 * cfg.n_layers

@@ -44,6 +44,8 @@ def test_scan_sees_the_whole_port():
     for mod in ("__init__", "batch_engine", "kv_pool", "prefix_cache",
                 "scheduler"):
         assert f"triton_distributed_tpu_torch/serving/{mod}.py" in names
+    for mod in ("kernels/moe_utils", "layers/moe_mlp"):
+        assert f"triton_distributed_tpu_torch/{mod}.py" in names
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -79,6 +81,7 @@ def test_engine_without_device_needs_a_card():
         Engine,
         KVPool,
         ModelConfig,
+        params_from_jax,
     )
     from triton_distributed_tpu_torch.runtime.device import resolve_device
 
@@ -96,3 +99,6 @@ def test_engine_without_device_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+    # The weight carrier places on the card by default as well.
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax(None, ModelConfig.from_name("tiny"))

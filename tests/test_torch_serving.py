@@ -60,7 +60,8 @@ def jax_setup():
     mesh = make_mesh({"tp": 1}, devices=jax.devices()[:1], set_default=False)
     jcfg = JaxConfig.from_name("tiny")
     jeng = JaxEngine(jcfg, mesh=mesh, mode="xla", block_n=8)
-    params = params_from_jax(jax.tree.map(np.asarray, jeng.params), CFG)
+    params = params_from_jax(jax.tree.map(np.asarray, jeng.params), CFG,
+                             device="cpu")
     return mesh, jcfg, jeng.params, params
 
 

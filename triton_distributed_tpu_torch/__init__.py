@@ -6,17 +6,18 @@ to find:
 
   runtime/device.py       device resolution (cuda unless the caller asks
                           for the CPU; no card raises)
-  models/                 ModelConfig presets, sampling, KVCache, Qwen3,
-                          Engine (prefill -> sample -> decode loop, and the
-                          two paged serving steps)
+  models/                 ModelConfig presets, sampling, KVCache, Qwen3
+                          (dense and MoE), Engine (prefill -> sample ->
+                          decode loop, and the two paged serving steps)
   serving/                BatchEngine (continuous batching), KVPool,
                           Scheduler, RadixPrefixCache
   layers/                 nn ops (incl. KV quantization and the paged pool
-                          write/read), TPAttn, TPMLP at world 1
+                          write/read), TPAttn, TPMLP, MoEMLP at world 1
   kernels/                wrappers of the hand-written CUDA kernels in
                           ``csrc/`` (matmul, flash prefill, flash decode,
-                          paged attention), each beside its plain PyTorch
-                          version
+                          paged attention, grouped GEMM), each beside its
+                          plain PyTorch version; MoE routing
+                          (``moe_utils``)
   kernels/_build.py       nvcc -> one shared library with a C interface,
                           loaded with ctypes at first use
 

@@ -1,0 +1,232 @@
+// One output tile of a row-major product C = A @ B (A (M, K), B (K, N),
+// C (M, N)), f32 accumulation, C in the inputs' dtype: the block-level body
+// shared by matmul.cu and grouped_gemm.cu.
+//
+// bf16: a BM x BN tile on the tensor cores with mma.sync m16n8k16 (f32
+//   accumulate), fragments loaded by ldmatrix (A) and ldmatrix.trans (B)
+//   from BM x BK / BK x BN shared-memory tiles that cp.async fills STAGES
+//   deep, so three K tiles are in flight while one multiplies. Each warp's
+//   64x64 f32 accumulators stay in registers for the whole K loop and are
+//   stored straight from them.
+// f32: a plain SIMT tile (64x64 outputs, 4x4 per thread, full f32 FMAs, no
+//   TF32).
+//
+// Rows are masked twice: A rows at or past m_load are never read (they load
+// as zeros: cp.async with a source size of 0), and C rows at or past
+// m_store are not written. matmul passes M for both; the grouped GEMM
+// passes an expert's row count for m_load and its capacity for m_store, so
+// the rows between them come out as exact zeros without being read.
+// Columns and K past the matrix are masked the same way.
+#pragma once
+
+#include "common.cuh"
+
+namespace tdt {
+namespace gemm {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BM = 128, BN = 128, BK = 32;
+constexpr int STAGES = 4;
+constexpr int LDA = BK + 8;  // bf16 per A smem row: ldmatrix conflict-free
+constexpr int LDB = BN + 8;  // bf16 per B smem row
+constexpr int THREADS = 128;  // 4 warps: 2 (M) x 2 (N), 64x64 per warp
+constexpr int MI = 4, NJ = 8;  // m16 x n8 accumulator fragments per warp
+constexpr int A_STAGE = BM * LDA;
+constexpr int B_STAGE = BK * LDB;
+constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
+
+// Fill one stage: the BM x BK tile of A at (m0, k0) and the BK x BN tile of
+// B at (k0, n0). VEC: 16-byte cp.async (needs K % 8 == 0, N % 8 == 0 and
+// 16-byte aligned bases); otherwise element loads with bounds checks.
+template <bool VEC>
+__device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* A,
+                                           const bf16* B, int m_load, int N,
+                                           int K, int m0, int n0, int k0,
+                                           int tid) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
+      int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
+      int gr = m0 + r, gc = k0 + c;
+      bool ok = gr < m_load && gc < K;
+      const bf16* src = ok ? A + (size_t)gr * K + gc : A;
+      cp_async16(sA + r * LDA + c, src, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
+      int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
+      int gr = k0 + r, gc = n0 + c;
+      bool ok = gr < K && gc < N;
+      const bf16* src = ok ? B + (size_t)gr * N + gc : B;
+      cp_async16(sB + r * LDB + c, src, ok ? 16 : 0);
+    }
+  } else {
+    const bf16 zero = __float2bfloat16(0.f);
+    for (int i = tid; i < BM * BK; i += THREADS) {
+      int r = i / BK, c = i % BK;
+      int gr = m0 + r, gc = k0 + c;
+      sA[r * LDA + c] = (gr < m_load && gc < K) ? A[(size_t)gr * K + gc]
+                                                : zero;
+    }
+    for (int i = tid; i < BK * BN; i += THREADS) {
+      int r = i / BN, c = i % BN;
+      int gr = k0 + r, gc = n0 + c;
+      sB[r * LDB + c] = (gr < K && gc < N) ? B[(size_t)gr * N + gc] : zero;
+    }
+  }
+}
+
+// The bf16 tile at (m0, n0); every thread of the block (THREADS) calls it,
+// with SMEM_BYTES of dynamic shared memory at smem.
+template <bool VEC>
+__device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
+                                          const bf16* __restrict__ B,
+                                          bf16* __restrict__ C, int m_load,
+                                          int m_store, int N, int K, int m0,
+                                          int n0, unsigned char* smem) {
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sA + STAGES * A_STAGE;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int gid = lane / 4, tig = lane % 4;
+  const int mat = lane / 8, mrow = lane % 8;  // ldmatrix addressing
+  // A warp whose 64 rows all lie past m_load multiplies only zeros: it
+  // skips the products (its accumulators stay 0) but still loads its share.
+  const bool warp_live = m0 + wm * 64 < m_load;
+
+  // Warp tile 64 x 64: MI (m16) x NJ (n8) accumulator fragments. The wide
+  // warp tile halves the shared-memory fragment reads per mma against a
+  // 64 x 32 one, which is what bounds this tile.
+  float acc[MI][NJ][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int ktiles = (K + BK - 1) / BK;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < ktiles)
+      load_stage<VEC>(sA + st * A_STAGE, sB + st * B_STAGE, A, B, m_load, N,
+                      K, m0, n0, st * BK, tid);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();  // ... for every thread; tile kt-1's stage is free
+    const int next = kt + STAGES - 1;
+    if (next < ktiles)
+      load_stage<VEC>(sA + (next % STAGES) * A_STAGE,
+                      sB + (next % STAGES) * B_STAGE, A, B, m_load, N, K, m0,
+                      n0, next * BK, tid);
+    cp_async_commit();
+    if (!warp_live) continue;
+
+    const bf16* a_s = sA + (kt % STAGES) * A_STAGE;
+    const bf16* b_s = sB + (kt % STAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t af[MI][4], bfr[NJ / 2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldmatrix_x4(af[i], a_s + (wm * 64 + i * 16 + (mat & 1) * 8 + mrow) *
+                                     LDA +
+                               kk * 16 + (mat >> 1) * 8);
+#pragma unroll
+      for (int jj = 0; jj < NJ / 2; ++jj)
+        ldmatrix_x4_trans(bfr[jj], b_s + (kk * 16 + (mat & 1) * 8 + mrow) *
+                                             LDB +
+                                       wn * 64 + (jj * 2 + (mat >> 1)) * 8);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          mma_bf16(acc[i][j], af[i], &bfr[j / 2][(j % 2) * 2]);
+    }
+  }
+  cp_async_wait_all();
+
+  // Epilogue straight from the accumulators: (row gid, cols 2tig, 2tig+1)
+  // and (row gid + 8, same cols) of each 16x8 fragment.
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gr = m0 + wm * 64 + i * 16 + gid + half * 8;
+      if (gr >= m_store) continue;
+      bf16* crow = C + (size_t)gr * N;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int gc = n0 + wn * 64 + j * 8 + 2 * tig;
+        const float x0 = acc[i][j][2 * half], x1 = acc[i][j][2 * half + 1];
+        if (VEC) {  // N % 8 == 0: the pair is inside C or wholly past it
+          if (gc < N)
+            *reinterpret_cast<__nv_bfloat162*>(crow + gc) =
+                __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (gc < N) crow[gc] = __float2bfloat16(x0);
+          if (gc + 1 < N) crow[gc + 1] = __float2bfloat16(x1);
+        }
+      }
+    }
+  }
+}
+
+// float32: SIMT tiles, FT x FT outputs per block of F_THREADS, 4x4 per
+// thread.
+constexpr int FT = 64, FK = 16, F_THREADS = 256;
+
+__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         float* __restrict__ C, int m_load,
+                                         int m_store, int N, int K, int m0,
+                                         int n0) {
+  __shared__ float sA[FK][FT + 4];  // transposed A tile: sA[k][m]
+  __shared__ float sB[FK][FT + 4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += FK) {
+    for (int i = tid; i < FT * FK; i += F_THREADS) {
+      int r = i / FK, c = i % FK;
+      sA[c][r] = (m0 + r < m_load && k0 + c < K)
+                     ? A[(size_t)(m0 + r) * K + k0 + c]
+                     : 0.f;
+      int rb = i / FT, cb = i % FT;
+      sB[rb][cb] = (k0 + rb < K && n0 + cb < N)
+                       ? B[(size_t)(k0 + rb) * N + n0 + cb]
+                       : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < FK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sA[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = sB[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int gr = m0 + ty + 16 * i, gc = n0 + tx + 16 * j;
+      if (gr < m_store && gc < N) C[(size_t)gr * N + gc] = acc[i][j];
+    }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+}  // namespace gemm
+}  // namespace tdt

@@ -9,6 +9,7 @@ the TPU kernel it replaces and its launch count.
 from triton_distributed_tpu_torch.kernels import (  # noqa: F401
     allgather_gemm,
     gemm_reduce_scatter,
+    moe_utils,
     paged_attention,
     sp_attention,
 )

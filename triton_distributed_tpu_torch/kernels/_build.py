@@ -57,6 +57,8 @@ SIGNATURES = {
     "tdt_paged_attention": [P, P, P, P, P, P, P, P,
                             I64, I64, I64, I64, I64, I64, I64, I64, F32,
                             I32, I32, P],
+    # x, w, out, counts ((E,) int32), E, cap, d, f, dtype, stream
+    "tdt_grouped_gemm": [P, P, P, P, I64, I64, I64, I64, I32, P],
 }
 
 

@@ -1,12 +1,13 @@
 """Inference engine: prefill, then sample, then decode token by token.
 
-Counterpart of ``triton_distributed_tpu/models/engine.py`` (``Engine``).
-Modes:
+Counterpart of ``triton_distributed_tpu/models/engine.py`` (``Engine``), for
+dense and MoE Qwen3 configs. Modes:
 
   ``dist`` - the kernel path: every prefill projection (M >= 64) through
              ``csrc/matmul.cu``, prefill attention through
              ``csrc/flash_prefill.cu``, each decode step's attention through
-             ``csrc/flash_decode.cu``.
+             ``csrc/flash_decode.cu``, an MoE FFN's expert GEMMs through
+             ``csrc/grouped_gemm.cu``.
   ``xla``  - the golden the JAX package also keeps: ``torch.matmul``
              products and dense attention with f32 probabilities. An
              explicit mode, never a fallback.
@@ -55,6 +56,24 @@ class Engine:
             self.params = self.model.init(seed, self.device)
         else:
             self.params = _to_device(params, self.device)
+
+    @torch.inference_mode()
+    def moe_drop_stats(self, input_ids) -> dict:
+        """Capacity audit of an MoE config (the JAX ``Engine.moe_drop_stats``
+        :205): one dist-mode forward over ``input_ids`` (B, L) on a fresh
+        cache, returning ``{"n_dropped_dispatch": int, "n_dropped_expert":
+        int}``, the (token, expert) pairs the static capacities dropped,
+        summed over layers. A deployment should see zeros; otherwise raise
+        ``moe_capacity_factor``."""
+        if not self.config.n_experts:
+            raise ValueError("moe_drop_stats is only meaningful for MoE "
+                             "configs (n_experts > 0)")
+        ids = torch.as_tensor(input_ids, device=self.device).to(torch.int32)
+        kv = self.new_cache(ids.shape[0])
+        _, stats = self.model.forward(self.params, ids, kv.k, kv.v,
+                                      kv.offset, mode="dist",
+                                      return_moe_stats=True)
+        return {k: int(v) for k, v in stats.items()}
 
     def new_cache(self, batch_size: int) -> KVCache:
         return KVCache.create(self.config, batch_size, device=self.device,

@@ -1,12 +1,14 @@
-"""Qwen3 decoder stack (dense family) at world 1.
+"""Qwen3 decoder stack (dense and MoE families) at world 1.
 
 Counterpart of ``triton_distributed_tpu/models/qwen.py`` (``Qwen3``). The
 parameters keep the JAX package's layout: a dict whose per-layer leaves are
 stacked along a leading ``n_layers`` dim, matrices stored (in, out),
 ``w_qkv`` packed [q | k | v], ``w_gate_up`` packed [gate | up], f32 norms,
-and no ``lm_head`` when embeddings are tied. ``params_from_jax`` carries a
-JAX parameter tree (as numpy arrays) over unchanged, so both frameworks can
-run the same weights.
+and no ``lm_head`` when embeddings are tied. An MoE config (``n_experts >
+0``) has ``router`` (L, d, E) f32, ``w_gate_up`` (L, E, d, 2 * moe_d_ff)
+and ``w_down`` (L, E, moe_d_ff, d) as its MLP leaves. ``params_from_jax``
+carries a JAX parameter tree (as numpy arrays) over unchanged, so both
+frameworks can run the same weights.
 
 The JAX stack walks the layers with ``lax.scan``; here a Python loop walks
 them, and each layer writes its slice of the KV cache (or of the serving
@@ -20,27 +22,22 @@ import dataclasses
 import torch
 
 from triton_distributed_tpu_torch.layers import nn
+from triton_distributed_tpu_torch.layers.moe_mlp import MoEMLP
 from triton_distributed_tpu_torch.layers.tp_attn import TPAttn
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
-
-_MOE_TODO = ("MoE configs (n_experts > 0) are not ported yet: ROADMAP.md, "
-             "Queue 1, MoE")
-
-
-def _check_dense(config: ModelConfig) -> None:
-    if config.n_experts:
-        raise NotImplementedError(_MOE_TODO)
+from triton_distributed_tpu_torch.runtime.device import resolve_device
 
 
 def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
     """The weight carrier: turn a JAX ``Qwen3.init``/``load_hf`` parameter
     tree (nested dicts of numpy arrays, or of anything ``numpy.asarray``
-    takes) into the port's parameter dict on ``device`` (default CPU).
-    Matrices take ``config.dtype``; norms stay f32."""
+    takes) into the port's parameter dict on ``device`` (default: the card;
+    pass "cpu" for the CPU). Matrices take ``config.dtype``; norms and the
+    MoE router stay f32."""
     import numpy as np
 
-    _check_dense(config)
+    device = resolve_device(device)
 
     def conv(x, dtype):
         arr = np.asarray(x)
@@ -57,6 +54,10 @@ def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
     if config.qk_norm:
         attn["q_norm"] = conv(layers["attn"]["q_norm"], vec)
         attn["k_norm"] = conv(layers["attn"]["k_norm"], vec)
+    mlp = {"w_gate_up": conv(layers["mlp"]["w_gate_up"], mat),
+           "w_down": conv(layers["mlp"]["w_down"], mat)}
+    if config.n_experts:
+        mlp["router"] = conv(layers["mlp"]["router"], vec)
     params = {
         "embed": conv(tree["embed"], mat),
         "final_norm": conv(tree["final_norm"], vec),
@@ -64,8 +65,7 @@ def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
             "input_norm": conv(layers["input_norm"], vec),
             "post_norm": conv(layers["post_norm"], vec),
             "attn": attn,
-            "mlp": {"w_gate_up": conv(layers["mlp"]["w_gate_up"], mat),
-                    "w_down": conv(layers["mlp"]["w_down"], mat)},
+            "mlp": mlp,
         },
     }
     if not config.tie_embeddings:
@@ -86,9 +86,16 @@ class Qwen3:
                       qk_norm=c.qk_norm, rms_eps=c.rms_eps)
 
     @property
-    def mlp(self) -> TPMLP:
-        _check_dense(self.config)
-        return TPMLP(d_model=self.config.d_model, d_ff=self.config.d_ff)
+    def mlp(self) -> TPMLP | MoEMLP:
+        """The FFN block: dense ``TPMLP`` or sparse ``MoEMLP``; both take
+        ``{dist,xla}_fwd(params, (n, d)) -> (n, d)``."""
+        c = self.config
+        if c.n_experts:
+            return MoEMLP(d_model=c.d_model, d_ff=c.moe_d_ff,
+                          n_experts=c.n_experts, topk=c.n_experts_per_tok,
+                          norm_topk_prob=c.norm_topk_prob, dtype=c.dtype,
+                          capacity_factor=c.moe_capacity_factor)
+        return TPMLP(d_model=c.d_model, d_ff=c.d_ff)
 
     def init(self, seed: int, device) -> dict:
         """Random parameters made on ``device`` from ``seed`` with a
@@ -97,7 +104,6 @@ class Qwen3:
         from JAX's ``Qwen3.init``; tests carry JAX weights over with
         ``params_from_jax`` instead."""
         c = self.config
-        _check_dense(c)
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         L, d, dh = c.n_layers, c.d_model, c.head_dim
@@ -113,8 +119,11 @@ class Qwen3:
         w_qkv = TPAttn.pack_qkv(randw((L, d, c.n_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d))
-        w_gate_up = TPMLP.interleave_gate_up(randw((L, d, c.d_ff), d),
-                                             randw((L, d, c.d_ff), d))
+        if c.n_experts:
+            mlp = self.mlp.init(gen, device, L)
+        else:
+            w_gate_up = TPMLP.interleave_gate_up(randw((L, d, c.d_ff), d),
+                                                 randw((L, d, c.d_ff), d))
         layer_attn = {"w_qkv": w_qkv,
                       "w_o": randw((L, c.n_heads * dh, d), c.n_heads * dh)}
         if c.qk_norm:
@@ -127,8 +136,9 @@ class Qwen3:
                 "input_norm": ones(L, d),
                 "post_norm": ones(L, d),
                 "attn": layer_attn,
-                "mlp": {"w_gate_up": w_gate_up,
-                        "w_down": randw((L, c.d_ff, d), c.d_ff)},
+                "mlp": mlp if c.n_experts else {
+                    "w_gate_up": w_gate_up,
+                    "w_down": randw((L, c.d_ff, d), c.d_ff)},
             },
         }
         if not c.tie_embeddings:
@@ -138,7 +148,7 @@ class Qwen3:
     def forward(self, params, ids, k_cache, v_cache, offset, *,
                 mode: str = "dist", seq_lens=None, block_tables=None,
                 slot_mask=None, paged_attn: str = "fused",
-                kv_scales=None) -> torch.Tensor:
+                kv_scales=None, return_moe_stats: bool = False):
         """One forward step. ids: (B, L) int. Returns the logits (B, vocab)
         f32 at each row's last position.
 
@@ -155,9 +165,25 @@ class Qwen3:
         in place; ``paged_attn`` "fused" (the kernel) or "gather" (the
         oracle); ``kv_scales`` (k_scale, v_scale) the per-layer scale
         arenas (n_layers, n_blocks, block_size, Hkv) f32 of an int8/fp8
-        pool. ``spec_verify`` waits for the speculative slice."""
+        pool. ``spec_verify`` waits for the speculative slice.
+
+        ``return_moe_stats=True`` (MoE, ``mode="dist"``) returns ``(logits,
+        stats)``: ``stats`` the (token, expert) pairs the static capacities
+        dropped, ``{"n_dropped_dispatch", "n_dropped_expert"}`` () int32
+        device tensors summed over layers (the JAX :315-347).
+
+        An MoE config routes every row of the step, padding rows included,
+        as the JAX stack does (``hn.reshape(-1, d)``)."""
         c = self.config
-        _check_dense(c)
+        if mode == "ar" and c.n_experts:
+            raise ValueError(
+                "mode='ar' is a dense-TP latency path (GEMM + all-reduce); an "
+                "MoE FFN's communication is the expert dispatch: use "
+                "mode='dist' or 'xla'")
+        if return_moe_stats and (not c.n_experts or mode != "dist"):
+            raise ValueError("return_moe_stats requires an MoE config in "
+                             "mode='dist' (drops exist only on the dispatch "
+                             "path)")
         if mode not in ("dist", "xla"):
             raise ValueError(f"unknown mode {mode!r} (ported: 'dist', 'xla'; "
                              f"'ar' waits for the allreduce kernel)")
@@ -175,6 +201,8 @@ class Qwen3:
                            paged_attn=paged_attn, paged_step=step)
         attn, mlp = self.attn, self.mlp
         lp = params["layers"]
+        moe_dist = bool(c.n_experts) and mode == "dist"
+        stats = None
         h = params["embed"][ids.long()]                       # (B, L, d)
         for i in range(c.n_layers):
             la = {k: v[i] for k, v in lp["attn"].items()}
@@ -188,8 +216,20 @@ class Qwen3:
             resid = h
             flat = nn.rms_norm(h, lp["post_norm"][i],
                                c.rms_eps).reshape(-1, c.d_model)
-            m = (mlp.dist_fwd(lm, flat) if mode == "dist"
-                 else mlp.xla_fwd(lm, flat))
+            if moe_dist:
+                # The JAX signature: stacked expert weights + the layer.
+                lm.update(w_gate_up=lp["mlp"]["w_gate_up"],
+                          w_down=lp["mlp"]["w_down"])
+                m = mlp.dist_fwd(lm, flat, return_stats=return_moe_stats,
+                                 layer_idx=i)
+                if return_moe_stats:
+                    m, layer = m
+                    stats = (layer if stats is None else
+                             {k: stats[k] + layer[k] for k in stats})
+            elif mode == "dist":
+                m = mlp.dist_fwd(lm, flat)
+            else:
+                m = mlp.xla_fwd(lm, flat)
             h = resid + m.reshape(h.shape)
         if seq_lens is None:
             last = h[:, -1]
@@ -201,4 +241,7 @@ class Qwen3:
                    else params["lm_head"])
         # Operands in their stored dtype, products summed in f32: the JAX
         # dot with preferred_element_type=f32.
-        return torch.matmul(last.float(), lm_head.float())
+        logits = torch.matmul(last.float(), lm_head.float())
+        if return_moe_stats:
+            return logits, stats
+        return logits
