@@ -58,7 +58,26 @@ script exits non-zero without its result line:
 4. times of each kernel, its plain version and one PyTorch call computing
    the same function (CUDA events, L2 flushed before each launch), beside
    the least time the card could take for the same work; the grouped GEMM
-   at the three capacities phase 3c serves.
+   at the three capacities phase 3c serves;
+5. the one-chip overlap path at bench.py's Qwen3-32B TP=8 per-rank shapes
+   (bf16, seeded): the AG-GEMM loopback (A (4,096 x 5,120), B (5,120 x
+   3,200), 8 segments; the first work items of one persistent kernel
+   stage A and raise a flag per chunk, its consumer tiles wait on them),
+   its segmented bare twin,
+   ``matmul_tail_into``, the GEMM-RS loopback ((4,096 x 3,200) x (3,200 x
+   5,120) -> (512 x 5,120)) and the fused step (c f32 (4,096 x 3,200),
+   s = 0.75). Each kernel is held against its plain version: the loopback
+   and the bare twin at the auto ``overlap_cols``, at ``n`` and at a
+   pinned 128-column split, the loopback again with the producer held back
+   ~1 ms and its staging buffer poisoned with NaN (it must equal the
+   undelayed result bit for bit), ``matmul_tail_into`` at ``col_start``
+   640, GEMM-RS at 8 segments and at 2 with one N tile, and the fused step
+   in place on ``c``. The path (the bench arms at the auto split and at
+   the JAX package's 640-column split, GEMM-RS, the fused step) runs once
+   with the counts reset, each count exact. Then the times: each kernel,
+   its plain version, the library call and the bound; the loopback at a
+   sweep of ``overlap_cols`` (the auto rule's evidence); and bench.py's
+   decomposition under its own names.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -72,15 +91,12 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
 
 import torch
-
-# Published dense peaks of one H100 SXM (NVIDIA data sheet, 700 W).
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES_PER_S = 3.35e12
 
 # Qwen3-1.7B at full width: the slice's shapes.
 B, L0, GEN = 4, 2048, 64
@@ -140,6 +156,26 @@ MOE_DRIFT_MARGIN = 1.5
 EMPTY_EXPERTS = (0, 1, 5, 6, 7, 126, 127)
 MOE_GEN, MOE_LAYERS_CHECKED = 32, (0, 24)
 
+# Phase 5: bench.py's one-chip overlap arms at Qwen3-32B TP=8 per-rank
+# width (bench.py:100, :2725-2737, :2659-2661): AG-GEMM (M, K) x (K, N),
+# GEMM-RS (M, K_RS) x (K_RS, N_RS), 8 segments.
+AG_M, AG_K, AG_N = 4096, 5120, 3200
+RS_K, RS_N = 3200, 5120
+SEGMENTS = 8
+# overlap_cols of the JAX package's auto rule at this shape (its tail block
+# 640: _split_blocks, _auto_overlap_cols), and the pinned split.
+JAX_SPLIT_COLS, PINNED_COLS = 640, 128
+OVERLAP_COLS_SWEEP = (128, 640, 1280, 1920, 3200)
+DECOMPOSITION_ROUNDS = 8
+TAIL_COL_START = 640
+FUSED_S = 0.75
+# Every producer item of the loopback held back 1 ms before its copy.
+PRODUCER_DELAY_NS = 1_000_000
+# Phase 5's kernels; the serving paths of phases 3-3c launch none of them.
+OVERLAP_KERNELS = ("ag_gemm_loopback", "matmul_tail_into",
+                   "gemm_rs_loopback", "fused_step")
+NO_OVERLAP = dict.fromkeys(OVERLAP_KERNELS, 0)
+
 
 def say(*parts):
     print(*parts, flush=True)
@@ -191,11 +227,27 @@ class Timer:
         return total / reps
 
 
-def bound_ms(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+def check_close_scaled(name, got, want, rel=1e-5):
+    """f32 outputs of long sums whose terms do not shrink with K (the fused
+    step: s = 0.75 rides on every one of its 5,120 terms, so outputs reach
+    ~250 and cancel to ~0 elsewhere): max |got - want| <= rel x max |want|,
+    the scale at which two f32 summation orders differ."""
+    diff = (got.float() - want.float()).abs().max().item()
+    bar = rel * want.float().abs().max().item()
+    if not diff <= bar:
+        raise AssertionError(f"{name}: max |diff| {diff:.4g} > {bar:.4g} "
+                             f"({rel:g} x max |want|)")
+    return diff
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time the card could take for bf16 work on the tensor
+    cores (the port's perf model, from the card's published peaks)."""
+    from triton_distributed_tpu_torch.runtime.perf_model import (
+        bound_seconds)
+
+    t, by = bound_seconds(flops, nbytes)
+    return t * 1e3, by
 
 
 def randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
@@ -677,7 +729,7 @@ def phase_full_width(Engine, ModelConfig, kernels):
     launches = {k: v.launches for k, v in kernels.KERNELS.items()}
     expected = {"matmul": 4 * cfg.n_layers, "flash_prefill": cfg.n_layers,
                 "flash_decode": cfg.n_layers * (GEN - 1),
-                "paged_attention": 0, "grouped_gemm": 0}
+                "paged_attention": 0, "grouped_gemm": 0, **NO_OVERLAP}
     say(f"phase 3: serve B={B} L0={L0} gen={GEN} launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -847,7 +899,7 @@ def phase_serving(eng, Engine, BatchEngine, kernels, pools=POOLS,
         expected = {"matmul": (2 if moe else 4) * L * m["prefill_steps"],
                     "grouped_gemm": 2 * L * steps if moe else 0,
                     "flash_prefill": 0, "flash_decode": 0,
-                    "paged_attention": L * steps}
+                    "paged_attention": L * steps, **NO_OVERLAP}
         say(f"{phase}: {kv or 'bf16'} pool: {m['requests_completed']} "
             f"requests, {m['decode_steps']} decode + {m['prefill_steps']} "
             f"mixed steps, launches {launches} (expected {expected})")
@@ -1084,7 +1136,7 @@ def phase_moe_full_width(Engine, ModelConfig, kernels, MoEMLP, nn, tmu,
     spy.check("phase 3c: serve", held_caps)
     expected = {"matmul": 2 * L, "grouped_gemm": 2 * L * MOE_GEN,
                 "flash_prefill": L, "flash_decode": L * (MOE_GEN - 1),
-                "paged_attention": 0}
+                "paged_attention": 0, **NO_OVERLAP}
     say(f"phase 3c: serve B={B} L0={L0} gen={MOE_GEN} launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -1210,8 +1262,7 @@ def phase_times(inputs, tg, tsp):
         t_k = timer(lambda: tg.matmul_cuda(a, b))
         t_p = timer(lambda: tg.matmul_ref(a, b), reps=3)
         t_l = timer(lambda: torch.matmul(a, b))
-        t_b, _ = bound_ms(2 * M * N * K, 2 * (M * K + K * N + M * N),
-                          torch.bfloat16)
+        t_b, _ = bound_ms(2 * M * N * K, 2 * (M * K + K * N + M * N))
         say(f"phase 4: matmul {name} ({M}x{K})x({K}x{N}): kernel {t_k:.4f} "
             f"ms, plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms, bound "
             f"{t_b:.4f} ms")
@@ -1230,7 +1281,7 @@ def phase_times(inputs, tg, tsp):
     # Causal from offset 0: query j attends j + 1 keys, every (row, head).
     pairs = B * HQ * L0 * (L0 + 1) / 2
     nbytes = 2 * (2 * B * L0 * HQ * DH + 2 * B * L0 * HKV * DH)
-    t_b, by = bound_ms(4 * DH * pairs, nbytes, torch.bfloat16)
+    t_b, by = bound_ms(4 * DH * pairs, nbytes)
     rows["flash_prefill"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                  bound_ms=t_b, bound_by=by)
     say(f"phase 4: flash_prefill B={B} L={L0} S={S}: kernel {t_k:.4f} ms, "
@@ -1251,7 +1302,7 @@ def phase_times(inputs, tg, tsp):
     keys = sum(DECODE_KV_LENS)
     nbytes = (2 * keys * HKV * DH * 2 + B * HQ * DH * 2
               + B * HQ * (DH + 1) * 4)
-    t_b, by = bound_ms(4 * HQ * DH * keys, nbytes, torch.bfloat16)
+    t_b, by = bound_ms(4 * HQ * DH * keys, nbytes)
     rows["flash_decode"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                 bound_ms=t_b, bound_by=by)
     say(f"phase 4: flash_decode B={B} S={S} kv_len {DECODE_KV_LENS} bshd: "
@@ -1302,7 +1353,7 @@ def paged_times(inputs, tpa, sp_gather):
                   + sum(q for _, q in work) * Hq * dh * 2       # live q rows
                   + sum(live) * L * Hq * dh * 2)    # live slots' out rows
         pairs = sum(q * (k - q) + q * (q + 1) // 2 for k, q in work)
-        t_b, by = bound_ms(4 * dh * Hq * pairs, nbytes, torch.bfloat16)
+        t_b, by = bound_ms(4 * dh * Hq * pairs, nbytes)
         rows[(name, kv)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                 bound_ms=t_b, bound_by=by)
         say(f"phase 4: paged_attention {name} L={L} {kv or 'bf16'} pool: "
@@ -1338,7 +1389,7 @@ def grouped_times(tmu, caps):
             t_l = timer(lambda: torch.bmm(x_clean, w), reps=20)
             nbytes = 2 * (n_live * d * f + n_rows * d + MOE_E * cap * f) \
                 + 4 * MOE_E
-            t_b, by = bound_ms(2 * n_rows * d * f, nbytes, torch.bfloat16)
+            t_b, by = bound_ms(2 * n_rows * d * f, nbytes)
             rows[(cap, name)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                      bound_ms=t_b, bound_by=by)
             say(f"phase 4: grouped_gemm {name} cap {cap} ({n_live} non-empty "
@@ -1354,6 +1405,264 @@ def grouped_times(tmu, caps):
     return out
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+def overlap_path(tg, trs, a, b, ar, br, c):
+    """Phase 5's main path, once: bench.py's arms through the entry points
+    (the loopback and its bare twin at the port's auto split and at the
+    JAX package's, GEMM-RS, the fused step)."""
+    split = tg.AGGEMMConfig(overlap_cols=JAX_SPLIT_COLS)
+    return {
+        "loopback auto": tg.ag_gemm_loopback(a, b, segments=SEGMENTS),
+        "segmented bare auto": tg.ag_gemm_segmented_bare(
+            a, b, segments=SEGMENTS),
+        f"loopback {JAX_SPLIT_COLS}": tg.ag_gemm_loopback(
+            a, b, segments=SEGMENTS, config=split),
+        f"segmented bare {JAX_SPLIT_COLS}": tg.ag_gemm_segmented_bare(
+            a, b, segments=SEGMENTS, config=split),
+        "gemm_rs": trs.gemm_rs_loopback(ar, br, segments=SEGMENTS),
+        "fused": tg.fused_matmul_step(c, a, b, FUSED_S),
+    }
+
+
+def phase_overlap(gen, tg, trs, kernels, card):
+    """Phase 5: returns (launches, max abs errors, times) of the four
+    overlap kernels."""
+    bf16 = torch.bfloat16
+    a = randn(gen, AG_M, AG_K)
+    b = randn(gen, AG_K, AG_N, scale=AG_K ** -0.5)
+    ar = randn(gen, AG_M, RS_K)
+    br = randn(gen, RS_K, RS_N, scale=RS_K ** -0.5)
+    c = randn(gen, AG_M, AG_N, dtype=torch.float32)
+    m = AG_M // SEGMENTS
+    auto_cols = tg._split(a, b, SEGMENTS, None)
+    say(f"phase 5: auto overlap_cols {auto_cols} of n {AG_N}")
+
+    # The main path, counts reset just before and read just after.
+    c_path = c.clone()
+    kernels.reset_counts()
+    outs = overlap_path(tg, trs, a, b, ar, br, c_path)
+    torch.cuda.synchronize()
+    launches = {k: kernels.KERNELS[k].launches for k in OVERLAP_KERNELS}
+    # Four consumers; a tail after each split one (the JAX split's two, and
+    # the auto split's when it leaves columns over).
+    want_launches = {"ag_gemm_loopback": 4,
+                     "matmul_tail_into": 2 + 2 * (auto_cols < AG_N),
+                     "gemm_rs_loopback": 1, "fused_step": 1}
+    others = {k: v.launches for k, v in kernels.KERNELS.items()
+              if k not in OVERLAP_KERNELS and v.launches}
+    say(f"phase 5: path launches {launches}, other kernels {others}")
+    if launches != want_launches or others:
+        raise AssertionError(f"phase 5: launch counts {launches} (others "
+                             f"{others}) != {want_launches}")
+    want_ag = tg.matmul_ref(a, b)
+    for label, got in outs.items():
+        if label == "gemm_rs":
+            want = trs.gemm_rs_loopback_ref(ar, br, segments=SEGMENTS)
+            check_close(f"phase 5: path {label}", got, want, bf16)
+        elif label == "fused":
+            if got.data_ptr() != c_path.data_ptr():
+                raise AssertionError("phase 5: the fused step did not "
+                                     "update c in place")
+            want = tg.fused_matmul_step_ref(c, a, b, FUSED_S)
+            check_close_scaled(f"phase 5: path {label}", got, want)
+        else:
+            check_close(f"phase 5: path {label}", got, want_ag, bf16)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"phase 5: path {label}: non-finite")
+    del outs, c_path
+
+    # (a) Each kernel against its plain version.
+    err = dict.fromkeys(OVERLAP_KERNELS, 0.0)
+    for label, cols in (("auto", auto_cols), ("n", AG_N),
+                        ("pinned", PINNED_COLS)):
+        cfg = tg.AGGEMMConfig(overlap_cols=cols)
+        e_l = check_close(f"phase 5: loopback cols {cols}", tg.ag_gemm_loopback(
+            a, b, segments=SEGMENTS, config=cfg), want_ag, bf16)
+        e_b = check_close(f"phase 5: segmented bare cols {cols}",
+                          tg.ag_gemm_segmented_bare(
+                              a, b, segments=SEGMENTS, config=cfg),
+                          want_ag, bf16)
+        out1, staged = tg.ag_gemm_loopback_cuda(a, b, segments=SEGMENTS,
+                                                cols=cols)
+        ref1, _ = tg.ag_gemm_loopback_ref(a, b, cols=cols)
+        e_k = check_close(f"phase 5: consumer cols {cols}", out1, ref1, bf16)
+        if not torch.equal(staged, a):
+            raise AssertionError("phase 5: the staged A differs from A")
+        err["ag_gemm_loopback"] = max(err["ag_gemm_loopback"], e_l, e_b, e_k)
+        if cols < AG_N:
+            err["matmul_tail_into"] = max(err["matmul_tail_into"], e_l, e_b)
+        say(f"phase 5: ag_gemm_loopback / segmented bare, overlap_cols "
+            f"{cols} ({label}): max_abs_err {e_l:.4g} / {e_b:.4g}, consumer "
+            f"alone {e_k:.4g}, staged A == A")
+    # The producers held back 1 ms, the staging buffer poisoned: the
+    # consumer tiles must wait on the flags, not race them.
+    undelayed, _ = tg.ag_gemm_loopback_cuda(a, b, segments=SEGMENTS,
+                                            cols=AG_N)
+    poison = torch.full_like(a, float("nan"))
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    delayed, _ = tg.ag_gemm_loopback_cuda(
+        a, b, segments=SEGMENTS, cols=AG_N, staging=poison,
+        producer_delay_ns=PRODUCER_DELAY_NS)
+    t1.record()
+    torch.cuda.synchronize()
+    if not torch.equal(delayed, undelayed):
+        raise AssertionError("phase 5: the delayed producer changed the "
+                             "loopback's result (the consumer raced a flag)")
+    e = check_close("phase 5: delayed producer", delayed, want_ag, bf16)
+    say(f"phase 5: delayed producers (1 ms sleep, NaN staging): call took "
+        f"{t0.elapsed_time(t1):.3f} ms, result bit-identical to the "
+        f"undelayed run, max_abs_err {e:.4g}")
+    del poison, delayed, undelayed
+
+    ct = randn(gen, AG_M, TAIL_COL_START)
+    got = tg.matmul_tail_into(ct, a, b, TAIL_COL_START)
+    if not torch.equal(got[:, :TAIL_COL_START], ct):
+        raise AssertionError("phase 5: matmul_tail_into's pass-through "
+                             "columns differ from c")
+    e = check_close("phase 5: matmul_tail_into", got,
+                    tg.matmul_tail_into_ref(ct, a, b, TAIL_COL_START), bf16)
+    err["matmul_tail_into"] = max(err["matmul_tail_into"], e)
+    say(f"phase 5: matmul_tail_into col_start {TAIL_COL_START}: "
+        f"max_abs_err {e:.4g}, pass-through columns == c")
+
+    for segs, (Mr, Nr) in ((SEGMENTS, (AG_M, RS_N)), (2, (2 * m, 128))):
+        x, w = ar[:Mr], br[:, :Nr].contiguous()
+        e = check_close(f"phase 5: gemm_rs_loopback segments {segs}",
+                        trs.gemm_rs_loopback(x, w, segments=segs),
+                        trs.gemm_rs_loopback_ref(x, w, segments=segs), bf16)
+        err["gemm_rs_loopback"] = max(err["gemm_rs_loopback"], e)
+        say(f"phase 5: gemm_rs_loopback ({Mr}x{RS_K})x({RS_K}x{Nr}) "
+            f"segments {segs}: max_abs_err {e:.4g}")
+
+    cf = c.clone()
+    got = tg.fused_matmul_step(cf, a, b, FUSED_S)
+    if got.data_ptr() != cf.data_ptr():
+        raise AssertionError("phase 5: fused step output is not c")
+    e = check_close_scaled("phase 5: fused step", got,
+                           tg.fused_matmul_step_ref(c, a, b, FUSED_S))
+    err["fused_step"] = e
+    say(f"phase 5: fused step s={FUSED_S} f32 c ({AG_M}x{AG_N}): in place, "
+        f"max_abs_err {e:.4g} (bar 1e-5 x max |want| = "
+        f"{1e-5 * got.abs().max().item():.4g})")
+    del cf, got
+
+    # (c) Times.
+    timer = Timer("cuda")
+    flops_ag = 2 * AG_M * AG_K * AG_N
+    rows = {}
+    t_k = timer(lambda: tg.ag_gemm_loopback_cuda(a, b, segments=SEGMENTS,
+                                                 cols=AG_N), reps=20)
+    t_p = timer(lambda: tg.ag_gemm_loopback_ref(a, b, cols=AG_N), reps=3)
+    t_l = timer(lambda: torch.matmul(a, b), reps=20)
+    t_b, by = bound_ms(flops_ag, 2 * (AG_M * AG_K + AG_K * AG_N
+                                      + AG_M * AG_N))
+    rows["ag_gemm_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                    bound_ms=t_b, bound_by=by)
+    say(f"phase 5: ag_gemm_loopback over all {AG_N} columns, staging "
+        f"included: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"torch.matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+
+    ncols = AG_N - TAIL_COL_START
+    t_k = timer(lambda: tg.matmul_tail_into(ct, a, b, TAIL_COL_START),
+                reps=20)
+    t_p = timer(lambda: tg.matmul_tail_into_ref(ct, a, b, TAIL_COL_START),
+                reps=3)
+    t_b, by = bound_ms(2 * AG_M * AG_K * ncols,
+                       2 * (AG_M * TAIL_COL_START + AG_M * AG_K
+                            + AG_K * ncols + AG_M * AG_N))
+    rows["matmul_tail_into"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                                    bound_ms=t_b, bound_by=by)
+    say(f"phase 5: matmul_tail_into col_start {TAIL_COL_START}: kernel "
+        f"{t_k:.4f} ms, plain {t_p:.4f} ms, library: none (no one call "
+        f"assembles it), bound {t_b:.4f} ms ({by}) [{card}]")
+
+    a3 = ar.view(SEGMENTS, m, RS_K)
+    b3 = br.expand(SEGMENTS, RS_K, RS_N)
+    z = torch.empty((m, RS_N), dtype=bf16, device="cuda")
+    t_k = timer(lambda: trs.gemm_rs_loopback(ar, br, segments=SEGMENTS),
+                reps=20)
+    t_p = timer(lambda: trs.gemm_rs_loopback_ref(ar, br, segments=SEGMENTS),
+                reps=3)
+    t_l = timer(lambda: torch.addbmm(z, a3, b3, beta=0), reps=20)
+    t_b, by = bound_ms(2 * AG_M * RS_K * RS_N,
+                       2 * (AG_M * RS_K + RS_K * RS_N + m * RS_N))
+    rows["gemm_rs_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                    bound_ms=t_b, bound_by=by)
+    say(f"phase 5: gemm_rs_loopback ({AG_M}x{RS_K})x({RS_K}x{RS_N}) "
+        f"segments {SEGMENTS}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"torch.addbmm {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+
+    cf = c.clone()
+    s_b = torch.tensor(FUSED_S, dtype=bf16, device="cuda")
+    t_k = timer(lambda: tg.fused_matmul_step(cf, a, b, FUSED_S), reps=20)
+    t_p = timer(lambda: tg.fused_matmul_step_ref(c, a, b, FUSED_S), reps=3)
+    t_e = timer(lambda: c + torch.matmul(a, b + s_b), reps=20)
+    t_b, by = bound_ms(flops_ag, 2 * (AG_M * AG_K + AG_K * AG_N)
+                       + 4 * 2 * AG_M * AG_N)
+    rows["fused_step"] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                              bound_ms=t_b, bound_by=by)
+    say(f"phase 5: fused step: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+        f"library: none (no one call takes bf16 operands into an f32 c), "
+        f"bound {t_b:.4f} ms ({by}) [{card}]")
+    del cf
+
+    # The auto rule's evidence: the loopback and its bare twin at each
+    # overlap_cols of the sweep, in turns.
+    sweep = {}
+    for cols in OVERLAP_COLS_SWEEP:
+        cfg = tg.AGGEMMConfig(overlap_cols=cols)
+        sweep[cols] = (
+            timer(lambda: tg.ag_gemm_loopback(a, b, segments=SEGMENTS,
+                                              config=cfg), reps=20),
+            timer(lambda: tg.ag_gemm_segmented_bare(
+                a, b, segments=SEGMENTS, config=cfg), reps=20))
+    say("phase 5: overlap_cols sweep (loopback ms / segmented bare ms): "
+        + ", ".join(f"{k}: {v[0]:.4f} / {v[1]:.4f}"
+                    for k, v in sweep.items()) + f" [{card}]")
+
+    # bench.py's decomposition: its arms timed in turns, the order reversed
+    # every round (A B C .. C B A ..), the median of the rounds kept.
+    arms = {
+        "loopback": lambda: tg.ag_gemm_loopback(a, b, segments=SEGMENTS),
+        "segbare": lambda: tg.ag_gemm_segmented_bare(a, b,
+                                                     segments=SEGMENTS),
+        "bare": lambda: tg.matmul_cuda(a, b),
+        "rs_loopback": lambda: trs.gemm_rs_loopback(ar, br,
+                                                    segments=SEGMENTS),
+        "rs_bare": lambda: tg.matmul_cuda(ar, br),
+        "fused": lambda: tg.fused_matmul_step(c, a, b, FUSED_S),
+        "fused_torch": lambda: c + torch.matmul(a, b + s_b),
+    }
+    rounds = {name: [] for name in arms}
+    order = list(arms)
+    for rnd in range(DECOMPOSITION_ROUNDS):
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            rounds[name].append(timer(arms[name], reps=10))
+    t = {name: statistics.median(v) for name, v in rounds.items()}
+    dec = {
+        "ag_gemm_loopback_m4096_qwen32b_tp8_ms": t["loopback"],
+        "ag_segmented_bare_ms": t["segbare"],
+        "bare_consumer_matmul_ms": t["bare"],
+        "overlap_efficiency": t["bare"] / t["loopback"],
+        "ag_grid_structure_ms": t["segbare"] - t["bare"],
+        "ag_staging_machinery_ms": t["loopback"] - t["segbare"],
+        "ag_staging_bound_ms": bound_ms(
+            0, 2 * (SEGMENTS - 1) * m * AG_K * 2)[0],
+        "gemm_rs_loopback_m4096_ms": t["rs_loopback"],
+        "gemm_rs_bare_matmul_ms": t["rs_bare"],
+        "gemm_rs_overlap_efficiency": t["rs_bare"] / t["rs_loopback"],
+        "fused_step_kernel_ms": t["fused"],
+        "fused_step_torch_ms": t["fused_torch"],
+    }
+    for key, v in dec.items():
+        say(f"phase 5: {key} = {v:.4f} [{card}]")
+    return launches, err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1364,6 +1673,7 @@ def main() -> int:
     from triton_distributed_tpu_torch import kernels
     from triton_distributed_tpu_torch.kernels import _build
     from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+    from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
     from triton_distributed_tpu_torch.kernels import moe_utils as tmu
     from triton_distributed_tpu_torch.kernels import paged_attention as tpa
     from triton_distributed_tpu_torch.kernels import sp_attention as tsp
@@ -1372,7 +1682,8 @@ def main() -> int:
     from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
 
     t_start = time.perf_counter()
-    say(card_line())
+    card = card_line()
+    say(card)
     say(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
@@ -1419,11 +1730,19 @@ def main() -> int:
     times["paged_attention"] = paged_times(paged_inputs, tpa,
                                            tsp.paged_gather_kv)
     times["grouped_gemm"] = grouped_times(tmu, served_caps)
+    free_card()
+    overlap_launches, overlap_err, overlap_times = phase_overlap(
+        gen, tg, trs, kernels, card)
+    launches.update(overlap_launches)
+    err.update(overlap_err)
+    times.update(overlap_times)
 
     record = []
     for name, kern in kernels.KERNELS.items():
         row = times[name]
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            if row[key] is None and key == "library_ms":
+                continue
             if not math.isfinite(row[key]):
                 raise AssertionError(f"{name} {key} is not finite")
         record.append(dict(

@@ -7,6 +7,7 @@ Tolerances: bf16 output ``atol=rtol=2e-2``; fp32 output ``atol=rtol=1e-4``
 (the kernel sums in another order than the plain version)."""
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 from triton_distributed_tpu_torch import BatchEngine, Engine, ModelConfig
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
 from triton_distributed_tpu_torch.kernels import moe_utils as tmu
 from triton_distributed_tpu_torch.kernels import paged_attention as tpa
 from triton_distributed_tpu_torch.kernels import sp_attention as tsp
@@ -346,3 +348,127 @@ def test_moe_serving_steps_never_read_back_to_the_host(cuda):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert tmu.GROUPED_GEMM.launches == 2 * 2 * cfg.n_layers
+
+
+# -- the one-chip overlap kernels (bf16) ---------------------------------------
+
+def _overlap_ab(cuda, seed, M, K, N):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (_randn(gen, M, K, dtype=torch.bfloat16),
+            _randn(gen, K, N, dtype=torch.bfloat16) * K ** -0.5)
+
+
+@pytest.mark.parametrize("M,K,N,segments,cols", [
+    (1024, 256, 384, 8, 384), (1024, 256, 384, 8, 128),
+    (192, 72, 200, 3, 200), (96, 64, 128, 12, 128)])
+def test_ag_gemm_loopback_kernel_matches_plain(cuda, M, K, N, segments,
+                                               cols):
+    """Staged and bare consumers against their plain versions, with and
+    without the tail; ragged shapes (segments of 64 and 8 rows, N and K not
+    multiples of the tile) included."""
+    a, b = _overlap_ab(cuda, M, M, K, N)
+    cfg = tg.AGGEMMConfig(block_n=cols if N % 128 else 128,
+                          overlap_cols=cols)
+    want = tg.matmul_ref(a, b)
+    _build.reset_counts()
+    for fn in (tg.ag_gemm_loopback, tg.ag_gemm_segmented_bare):
+        torch.testing.assert_close(fn(a, b, segments=segments, config=cfg),
+                                   want, atol=2e-2, rtol=2e-2)
+    out1, staged = tg.ag_gemm_loopback_cuda(a, b, segments=segments,
+                                            cols=cols)
+    torch.cuda.synchronize()
+    assert torch.equal(staged, a)
+    torch.testing.assert_close(out1, tg.ag_gemm_loopback_ref(
+        a, b, cols=cols)[0], atol=2e-2, rtol=2e-2)
+    assert tg.AG_LOOPBACK.launches == 3
+    assert tg.TAIL_INTO.launches == 2 * (cols < N)
+
+
+def test_ag_gemm_loopback_waits_for_delayed_producers(cuda):
+    """Every producer item held back 1 ms behind a NaN-poisoned staging
+    buffer: the consumer tiles must wait on the flags, so the result is
+    bit-identical to the undelayed one."""
+    a, b = _overlap_ab(cuda, 7, 1024, 256, 384)
+    want, _ = tg.ag_gemm_loopback_cuda(a, b, segments=8, cols=384)
+    poison = torch.full_like(a, float("nan"))
+    torch.cuda.synchronize()
+    got, _ = tg.ag_gemm_loopback_cuda(a, b, segments=8, cols=384,
+                                      staging=poison,
+                                      producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N,col_start", [(256, 128, 384, 128),
+                                             (130, 40, 300, 100),
+                                             (64, 64, 256, 0),
+                                             (64, 64, 256, 256)])
+def test_matmul_tail_into_kernel_matches_plain(cuda, M, K, N, col_start):
+    a, b = _overlap_ab(cuda, N, M, K, N)
+    c = torch.randn(M, col_start, device=cuda).bfloat16()
+    got = tg.matmul_tail_into(c, a, b, col_start)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, :col_start], c)
+    torch.testing.assert_close(got, tg.matmul_tail_into_ref(c, a, b,
+                                                            col_start),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("M,K,N,segments", [(1024, 256, 512, 8),
+                                            (256, 64, 128, 2),
+                                            (200, 40, 136, 4),
+                                            (128, 64, 128, 1)])
+def test_gemm_rs_loopback_kernel_matches_plain(cuda, M, K, N, segments):
+    a, b = _overlap_ab(cuda, M + segments, M, K, N)
+    _build.reset_counts()
+    got = trs.gemm_rs_loopback(a, b, segments=segments)
+    torch.cuda.synchronize()
+    assert trs.GEMM_RS_LOOPBACK.launches == 1
+    torch.testing.assert_close(got, trs.gemm_rs_loopback_ref(
+        a, b, segments=segments), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("M,K,N", [(256, 128, 384), (130, 40, 200)])
+def test_fused_step_kernel_updates_c_in_place(cuda, M, K, N):
+    a, b = _overlap_ab(cuda, K, M, K, N)
+    c = torch.randn(M, N, device=cuda)
+    want = tg.fused_matmul_step_ref(c, a, b, 0.75)
+    s = torch.tensor([0.75], device=cuda)  # read on the card
+    for scalar in (0.75, s):
+        cc = c.clone()
+        got = tg.fused_matmul_step(cc, a, b, scalar)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == cc.data_ptr()
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    got = tg.fused_matmul_step(c.bfloat16(), a, b, 0.75)
+    assert got.dtype == torch.float32
+
+
+def test_consumer_whose_flag_does_not_arrive_raises(cuda):
+    """Producers held back 5 s, past the waits' bound: a consumer tile
+    traps after its bounded spin (~1 s) and the call raises instead of
+    hanging; in a subprocess, so the sticky CUDA error stays out of this
+    process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = (
+        "import torch\n"
+        "from triton_distributed_tpu_torch.kernels import allgather_gemm "
+        "as tg\n"
+        "a = torch.zeros(256, 64, dtype=torch.bfloat16, device='cuda')\n"
+        "b = torch.zeros(64, 128, dtype=torch.bfloat16, device='cuda')\n"
+        "tg.ag_gemm_loopback_cuda(a, b, segments=8, cols=128, "
+        "producer_delay_ns=5_000_000_000)\n"
+        "torch.cuda.synchronize()\n")
+    repo = Path(__file__).resolve().parent.parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                          capture_output=True, text=True, timeout=120)
+    out = proc.stdout + proc.stderr
+    assert proc.returncode != 0, out
+    # The trap surfaces as a launch failure at the synchronisation; the
+    # kernel's own line names the flag when the printf buffer is flushed.
+    assert "timed out" in out or "launch failure" in out, out
+    assert time.perf_counter() - t0 < 60

@@ -44,7 +44,8 @@ def test_scan_sees_the_whole_port():
     for mod in ("__init__", "batch_engine", "kv_pool", "prefix_cache",
                 "scheduler"):
         assert f"triton_distributed_tpu_torch/serving/{mod}.py" in names
-    for mod in ("kernels/moe_utils", "layers/moe_mlp"):
+    for mod in ("kernels/moe_utils", "layers/moe_mlp", "kernels/_signal",
+                "kernels/gemm_reduce_scatter", "runtime/perf_model"):
         assert f"triton_distributed_tpu_torch/{mod}.py" in names
 
 
@@ -65,6 +66,7 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, triton_distributed_tpu_torch as p; "
             "import triton_distributed_tpu_torch.kernels; "
             "import triton_distributed_tpu_torch.serving; "
+            "import triton_distributed_tpu_torch.runtime.perf_model; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'triton_distributed_tpu' or "
             "m.startswith('triton_distributed_tpu.')]; "

@@ -1,13 +1,20 @@
 // One output tile of a row-major product C = A @ B (A (M, K), B (K, N),
 // C (M, N)), f32 accumulation, C in the inputs' dtype: the block-level body
-// shared by matmul.cu and grouped_gemm.cu.
+// shared by matmul.cu, grouped_gemm.cu and the one-chip overlap kernels
+// (ag_gemm_loopback.cu, matmul_tail_into.cu, gemm_rs_loopback.cu,
+// fused_step.cu).
 //
 // bf16: a BM x BN tile on the tensor cores with mma.sync m16n8k16 (f32
 //   accumulate), fragments loaded by ldmatrix (A) and ldmatrix.trans (B)
 //   from BM x BK / BK x BN shared-memory tiles that cp.async fills STAGES
 //   deep, so three K tiles are in flight while one multiplies. Each warp's
-//   64x64 f32 accumulators stay in registers for the whole K loop and are
-//   stored straight from them.
+//   64x64 f32 accumulators stay in registers for the whole K loop
+//   (bf16_mainloop); bf16_tile stores them straight from there, and the
+//   other kernels run their own epilogue over the same fragments
+//   (for_each_pair). A and B take row strides (lda, ldb) of their own, so a
+//   caller can multiply a column window of B or a row segment of A in
+//   place; a B-fragment operator (BOp) may rewrite B's fragments after
+//   ldmatrix (the fused step adds its scalar there).
 // f32: a plain SIMT tile (64x64 outputs, 4x4 per thread, full f32 FMAs, no
 //   TF32).
 //
@@ -37,20 +44,21 @@ constexpr int B_STAGE = BK * LDB;
 constexpr int SMEM_BYTES = STAGES * (A_STAGE + B_STAGE) * 2;
 
 // Fill one stage: the BM x BK tile of A at (m0, k0) and the BK x BN tile of
-// B at (k0, n0). VEC: 16-byte cp.async (needs K % 8 == 0, N % 8 == 0 and
+// B at (k0, n0); B's columns at or past N are masked, its rows are ldb
+// apart. VEC: 16-byte cp.async (needs K, lda, ldb and N multiples of 8 and
 // 16-byte aligned bases); otherwise element loads with bounds checks.
 template <bool VEC>
 __device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* A,
-                                           const bf16* B, int m_load, int N,
-                                           int K, int m0, int n0, int k0,
-                                           int tid) {
+                                           int lda, const bf16* B, int ldb,
+                                           int m_load, int N, int K, int m0,
+                                           int n0, int k0, int tid) {
   if constexpr (VEC) {
 #pragma unroll
     for (int i = tid; i < BM * (BK / 8); i += THREADS) {
       int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
       int gr = m0 + r, gc = k0 + c;
       bool ok = gr < m_load && gc < K;
-      const bf16* src = ok ? A + (size_t)gr * K + gc : A;
+      const bf16* src = ok ? A + (size_t)gr * lda + gc : A;
       cp_async16(sA + r * LDA + c, src, ok ? 16 : 0);
     }
 #pragma unroll
@@ -58,7 +66,7 @@ __device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* A,
       int r = i / (BN / 8), c = (i % (BN / 8)) * 8;
       int gr = k0 + r, gc = n0 + c;
       bool ok = gr < K && gc < N;
-      const bf16* src = ok ? B + (size_t)gr * N + gc : B;
+      const bf16* src = ok ? B + (size_t)gr * ldb + gc : B;
       cp_async16(sB + r * LDB + c, src, ok ? 16 : 0);
     }
   } else {
@@ -66,40 +74,54 @@ __device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* A,
     for (int i = tid; i < BM * BK; i += THREADS) {
       int r = i / BK, c = i % BK;
       int gr = m0 + r, gc = k0 + c;
-      sA[r * LDA + c] = (gr < m_load && gc < K) ? A[(size_t)gr * K + gc]
+      sA[r * LDA + c] = (gr < m_load && gc < K) ? A[(size_t)gr * lda + gc]
                                                 : zero;
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       int r = i / BN, c = i % BN;
       int gr = k0 + r, gc = n0 + c;
-      sB[r * LDB + c] = (gr < K && gc < N) ? B[(size_t)gr * N + gc] : zero;
+      sB[r * LDB + c] = (gr < K && gc < N) ? B[(size_t)gr * ldb + gc] : zero;
     }
   }
 }
 
-// The bf16 tile at (m0, n0); every thread of the block (THREADS) calls it,
-// with SMEM_BYTES of dynamic shared memory at smem.
-template <bool VEC>
-__device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
-                                          const bf16* __restrict__ B,
-                                          bf16* __restrict__ C, int m_load,
-                                          int m_store, int N, int K, int m0,
-                                          int n0, unsigned char* smem) {
+// The identity B-fragment operator (see bf16_mainloop).
+struct NoBOp {
+  __device__ __forceinline__ uint32_t operator()(uint32_t b) const {
+    return b;
+  }
+};
+
+// One warp's 64 x 64 share of the tile: MI (m16) x NJ (n8) accumulator
+// fragments.
+using Acc = float[MI][NJ][4];
+
+// The K loop of the bf16 tile at (m0, n0): every thread of the block
+// (THREADS) calls it, with SMEM_BYTES of dynamic shared memory at smem, and
+// gets its fragments of A[m0:, :] @ B[:, n0:] in acc. Each B fragment
+// register (two bf16) passes through bop after ldmatrix. The block's
+// shared memory is free again when it returns.
+template <bool VEC, class BOp = NoBOp>
+__device__ __forceinline__ void bf16_mainloop(const bf16* __restrict__ A,
+                                              int lda,
+                                              const bf16* __restrict__ B,
+                                              int ldb, int m_load, int N,
+                                              int K, int m0, int n0,
+                                              unsigned char* smem, Acc& acc,
+                                              BOp bop = BOp()) {
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + STAGES * A_STAGE;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 2, wn = warp % 2;
-  const int gid = lane / 4, tig = lane % 4;
   const int mat = lane / 8, mrow = lane % 8;  // ldmatrix addressing
   // A warp whose 64 rows all lie past m_load multiplies only zeros: it
   // skips the products (its accumulators stay 0) but still loads its share.
   const bool warp_live = m0 + wm * 64 < m_load;
 
-  // Warp tile 64 x 64: MI (m16) x NJ (n8) accumulator fragments. The wide
-  // warp tile halves the shared-memory fragment reads per mma against a
-  // 64 x 32 one, which is what bounds this tile.
-  float acc[MI][NJ][4];
+  // Warp tile 64 x 64. The wide warp tile halves the shared-memory
+  // fragment reads per mma against a 64 x 32 one, which is what bounds
+  // this tile.
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -111,8 +133,8 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < ktiles)
-      load_stage<VEC>(sA + st * A_STAGE, sB + st * B_STAGE, A, B, m_load, N,
-                      K, m0, n0, st * BK, tid);
+      load_stage<VEC>(sA + st * A_STAGE, sB + st * B_STAGE, A, lda, B, ldb,
+                      m_load, N, K, m0, n0, st * BK, tid);
     cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
@@ -121,8 +143,8 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
     const int next = kt + STAGES - 1;
     if (next < ktiles)
       load_stage<VEC>(sA + (next % STAGES) * A_STAGE,
-                      sB + (next % STAGES) * B_STAGE, A, B, m_load, N, K, m0,
-                      n0, next * BK, tid);
+                      sB + (next % STAGES) * B_STAGE, A, lda, B, ldb, m_load,
+                      N, K, m0, n0, next * BK, tid);
     cp_async_commit();
     if (!warp_live) continue;
 
@@ -137,10 +159,13 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
                                      LDA +
                                kk * 16 + (mat >> 1) * 8);
 #pragma unroll
-      for (int jj = 0; jj < NJ / 2; ++jj)
+      for (int jj = 0; jj < NJ / 2; ++jj) {
         ldmatrix_x4_trans(bfr[jj], b_s + (kk * 16 + (mat & 1) * 8 + mrow) *
                                              LDB +
                                        wn * 64 + (jj * 2 + (mat >> 1)) * 8);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bfr[jj][e] = bop(bfr[jj][e]);
+      }
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -149,31 +174,58 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
     }
   }
   cp_async_wait_all();
+  __syncthreads();  // every warp is done with the stages
+}
 
-  // Epilogue straight from the accumulators: (row gid, cols 2tig, 2tig+1)
-  // and (row gid + 8, same cols) of each 16x8 fragment.
+// Visit this thread's outputs of the tile at (m0, n0) as column pairs:
+// f(row, col, x[col], x[col + 1]) with col even, rows (gid, gid + 8) of
+// each 16 x 8 fragment; the two values are the accumulators themselves,
+// so f may update them. The caller masks rows and columns.
+template <class F>
+__device__ __forceinline__ void for_each_pair(Acc& acc, int m0, int n0,
+                                              F f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2, gid = lane / 4, tig = lane % 4;
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int gr = m0 + wm * 64 + i * 16 + gid + half * 8;
-      if (gr >= m_store) continue;
-      bf16* crow = C + (size_t)gr * N;
+    for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int gc = n0 + wn * 64 + j * 8 + 2 * tig;
-        const float x0 = acc[i][j][2 * half], x1 = acc[i][j][2 * half + 1];
-        if (VEC) {  // N % 8 == 0: the pair is inside C or wholly past it
-          if (gc < N)
-            *reinterpret_cast<__nv_bfloat162*>(crow + gc) =
-                __floats2bfloat162_rn(x0, x1);
-        } else {
-          if (gc < N) crow[gc] = __float2bfloat16(x0);
-          if (gc + 1 < N) crow[gc + 1] = __float2bfloat16(x1);
-        }
-      }
-    }
+      for (int j = 0; j < NJ; ++j)
+        f(m0 + wm * 64 + i * 16 + gid + half * 8,
+          n0 + wn * 64 + j * 8 + 2 * tig, acc[i][j][2 * half],
+          acc[i][j][2 * half + 1]);
+}
+
+// Store a pair of bf16 outputs into row crow at column gc, masked at N.
+// VEC: N % 8 == 0 and the row 4-byte aligned, so the pair is inside C or
+// wholly past it.
+template <bool VEC>
+__device__ __forceinline__ void store_pair(bf16* crow, int gc, int N,
+                                           float x0, float x1) {
+  if (VEC) {
+    if (gc < N)
+      *reinterpret_cast<__nv_bfloat162*>(crow + gc) =
+          __floats2bfloat162_rn(x0, x1);
+  } else {
+    if (gc < N) crow[gc] = __float2bfloat16(x0);
+    if (gc + 1 < N) crow[gc + 1] = __float2bfloat16(x1);
   }
+}
+
+// The bf16 tile at (m0, n0) of C = A @ B with A (., K), B and C (., N):
+// bf16_mainloop, then the accumulators stored straight from registers.
+template <bool VEC>
+__device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
+                                          const bf16* __restrict__ B,
+                                          bf16* __restrict__ C, int m_load,
+                                          int m_store, int N, int K, int m0,
+                                          int n0, unsigned char* smem) {
+  Acc acc;
+  bf16_mainloop<VEC>(A, K, B, N, m_load, N, K, m0, n0, smem, acc);
+  for_each_pair(acc, m0, n0, [&](int gr, int gc, float x0, float x1) {
+    if (gr < m_store) store_pair<VEC>(C + (size_t)gr * N, gc, N, x0, x1);
+  });
 }
 
 // float32: SIMT tiles, FT x FT outputs per block of F_THREADS, 4x4 per
@@ -222,6 +274,45 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
       int gr = m0 + ty + 16 * i, gc = n0 + tx + 16 * j;
       if (gr < m_store && gc < N) C[(size_t)gr * N + gc] = acc[i][j];
     }
+}
+
+// --- persistent grids with ticketed work (ag_gemm_loopback.cu,
+// gemm_rs_loopback.cu) ---
+
+// The block's next work item: thread 0 takes a ticket from the counter and
+// every thread of the block gets it. Ends at a barrier, so thread 0 may
+// take the next ticket as soon as the block calls again.
+__device__ __forceinline__ int take_ticket(int* counter) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) s_ticket = atomicAdd(counter, 1);
+  __syncthreads();
+  const int t = s_ticket;
+  __syncthreads();
+  return t;
+}
+
+// Blocks of a persistent grid for a kernel of THREADS threads and
+// SMEM_BYTES of dynamic shared memory: as many as the card holds at once,
+// and no more than `work` items. A block that waits on another's item can
+// then rely on that item being held by a running block, if items are
+// handed out by take_ticket in an order where every item waited on comes
+// first.
+template <class Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, long long work,
+                                     unsigned* blocks) {
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long cap = (long long)per_sm * sms;
+  *blocks = (unsigned)(work < cap ? work : cap);
+  return cudaSuccess;
 }
 
 inline bool aligned16(const void* p) {

@@ -33,8 +33,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 
-P, I64, I32, F32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_float)
+P, I64, I32, U32, U64, F32 = (ctypes.c_void_p, ctypes.c_longlong,
+                              ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong,
+                              ctypes.c_float)
 
 # C entry points: name -> argtypes (restype is always int = cudaError_t).
 SIGNATURES = {
@@ -59,6 +60,16 @@ SIGNATURES = {
                             I32, I32, P],
     # x, w, out, counts ((E,) int32), E, cap, d, f, dtype, stream
     "tdt_grouped_gemm": [P, P, P, P, I64, I64, I64, I64, I32, P],
+    # a, staging (null: bare), b, out, flags, ticket, epoch, M, cols, n, K,
+    # chunk rows, producer delay (ns), stream
+    "tdt_ag_gemm_loopback": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
+                             U64, P],
+    # c, a, b, out, M, n, K, col_start, stream
+    "tdt_matmul_tail_into": [P, P, P, P, I64, I64, I64, I64, P],
+    # a, b, out, staging, flags, ticket, epoch, segments, m, N, K, stream
+    "tdt_gemm_rs_loopback": [P, P, P, P, P, P, U32, I64, I64, I64, I64, P],
+    # c, a, b, out, s (nullable f32 scalar), s value, M, N, K, stream
+    "tdt_fused_step": [P, P, P, P, P, F32, I64, I64, I64, P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Single-card matmul: the world-1 path of AG-GEMM.
+"""Single-card matmul (the world-1 path of AG-GEMM) and the one-chip
+AG-GEMM overlap path.
 
 Counterpart of ``triton_distributed_tpu/kernels/allgather_gemm.py``. At
 world 1 its ``ag_gemm_device`` is ``ag_gemm_single_chip`` (:399), whose
@@ -8,18 +9,52 @@ hands it to ``torch.matmul``. The JAX package's other XLA delegations
 (ragged blocks, the VMEM budget, :833-848) follow from Mosaic's tiling and
 do not carry over: ``csrc/matmul.cu`` masks ragged edges itself.
 
+The one-chip overlap entry points (``ag_gemm_loopback`` :543,
+``ag_gemm_segmented_bare`` :631, their tail ``matmul_tail_into`` :232 and
+``fused_matmul_step`` :892) run on ``csrc/ag_gemm_loopback.cu``,
+``csrc/matmul_tail_into.cu`` and ``csrc/fused_step.cu``: in the loopback
+the first work items of one persistent kernel stage A chunk by chunk and
+raise a flag per chunk, and its consumer tiles wait on the flags
+(``csrc/signal.cuh``). Those kernels take bf16 operands; on the CPU each
+entry point runs the plain versions. Mosaic's VMEM arithmetic
+(``_split_blocks`` :151, ``_overlap_vmem``, ``_OVERLAP_VMEM_CAP``) does
+not carry over: the CUDA tiles are fixed at 128 x 128 and mask ragged
+edges.
+
 The overlapped multi-rank kernel (world > 1) is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
-from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels import _build, _signal
 
 MATMUL = _build.register(
     "matmul", "triton_distributed_tpu_torch/csrc/matmul.cu",
     "triton_distributed_tpu/kernels/allgather_gemm.py:733")
+FUSED_STEP = _build.register(
+    "fused_step", "triton_distributed_tpu_torch/csrc/fused_step.cu",
+    "triton_distributed_tpu/kernels/allgather_gemm.py:875")
+TAIL_INTO = _build.register(
+    "matmul_tail_into",
+    "triton_distributed_tpu_torch/csrc/matmul_tail_into.cu",
+    "triton_distributed_tpu/kernels/allgather_gemm.py:206")
+# One kernel for both loopback arms: staged (:484) and bare (:600).
+AG_LOOPBACK = _build.register(
+    "ag_gemm_loopback",
+    "triton_distributed_tpu_torch/csrc/ag_gemm_loopback.cu",
+    "triton_distributed_tpu/kernels/allgather_gemm.py:484")
+
+# Output tile width of the CUDA GEMM tiles (csrc/gemm_tile.cuh BN).
+TILE_N = 128
+# Rows of A one producer item of the loopback copies (fewer where a segment
+# has fewer): 16 rows of 5,120 bf16 are 160 KB, so at bench.py's shape 256
+# items copy in parallel on the first wave of blocks.
+STAGE_CHUNK_ROWS = 16
 
 # Below this many rows the product is a weight-streaming GEMV, left to the
 # library as the JAX package leaves it to XLA.
@@ -84,3 +119,310 @@ def ag_gemm_device(a_local: torch.Tensor, b_local: torch.Tensor, *,
         raise ValueError(f"K mismatch: A has {a_local.shape[1]}, B has "
                          f"{b_local.shape[0]}")
     return ag_gemm_single_chip(a_local, b_local)
+
+
+# ---------------------------------------------------------------------------
+# The one-chip AG-GEMM overlap path.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AGGEMMConfig:
+    """Column split of the one-chip AG-GEMM (JAX ``AGGEMMConfig`` :57).
+
+    ``block_n`` is the column granularity of the split: ``n`` and
+    ``overlap_cols`` must be multiples of it. ``None`` resolves to the CUDA
+    tile's width (``TILE_N``) when it divides ``n``, else to ``n``.
+    ``overlap_cols`` is the width the segment-ordered consumer computes
+    while the copies land; the remaining columns run in ``matmul_tail_into``
+    over the staged A. ``None`` sizes it automatically
+    (``_auto_overlap_cols``)."""
+
+    block_n: int | None = None
+    overlap_cols: int | None = None
+
+    def n_tiles(self, n_local: int) -> int:
+        if self.block_n is None or n_local % self.block_n:
+            raise ValueError(
+                f"n_local {n_local} not divisible by block_n {self.block_n}")
+        return n_local // self.block_n
+
+    def resolve(self, n_local: int) -> "AGGEMMConfig":
+        if self.block_n is not None:
+            return self
+        bn = TILE_N if n_local % TILE_N == 0 else n_local
+        return AGGEMMConfig(block_n=bn, overlap_cols=self.overlap_cols)
+
+
+def _auto_overlap_cols(n_local: int) -> int:
+    """Consumer width when the config leaves it open (JAX :103): all of
+    ``n_local``, no tail. The TPU rule sizes the overlap kernel just wide
+    enough to hide the gather, because its sequential grid runs the tail at
+    a better block; on the card a narrow consumer is a fraction of a wave
+    (128 columns at M = 4,096 are 32 tiles on 132 SMs) and the tail cannot
+    start before it ends. Measured at bench.py's shape on an H100 (PERF.md,
+    ``chip_smoke.py`` phase 5's sweep): 3,200 columns 0.697 ms, 1,280 0.705,
+    640 0.719, 128 0.749."""
+    return n_local
+
+
+def _resolve_overlap_cols(config: AGGEMMConfig, n: int) -> int:
+    """``config.overlap_cols`` when given, else ``_auto_overlap_cols``;
+    validated against the resolved ``block_n`` (JAX :183)."""
+    bn = config.block_n
+    cols = config.overlap_cols
+    if cols is None:
+        cols = _auto_overlap_cols(n)
+    if cols <= 0 or cols % bn or cols > n:
+        raise ValueError(f"overlap_cols {cols} must be a positive multiple "
+                         f"of block_n {bn} and <= {n}")
+    return cols
+
+
+def _split(a: torch.Tensor, b: torch.Tensor, segments: int,
+           config: AGGEMMConfig | None) -> int:
+    """Validate a loopback call and return its ``overlap_cols``."""
+    M, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"K mismatch: A has {k}, B has {k2}")
+    if segments < 1 or M % segments:
+        raise ValueError(f"M {M} not divisible by segments {segments}")
+    config = (config or AGGEMMConfig()).resolve(n)
+    config.n_tiles(n)  # divisibility check
+    return _resolve_overlap_cols(config, n)
+
+
+def _check_bf16_cuda(name: str, *ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} takes tensors on one CUDA device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bf16 operands, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes row-major contiguous operands")
+
+
+def ag_gemm_loopback_ref(a: torch.Tensor, b: torch.Tensor, *,
+                         cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the staged consumer: the staged A (a copy of ``a``,
+    segments in order) and ``staged @ b[:, :cols]`` in f32, cast to the
+    promoted dtype."""
+    staged = a.clone()
+    return matmul_ref(staged, b[:, :cols]), staged
+
+
+def segmented_bare_ref(a: torch.Tensor, b: torch.Tensor, *,
+                       cols: int) -> torch.Tensor:
+    """Plain version of the bare consumer: ``a @ b[:, :cols]``."""
+    return matmul_ref(a, b[:, :cols])
+
+
+def _ag_launch(a: torch.Tensor, b: torch.Tensor, *, segments: int,
+               cols: int, staging: torch.Tensor | None,
+               producer_delay_ns: int = 0) -> torch.Tensor:
+    """Launch ``csrc/ag_gemm_loopback.cu`` on the current stream, staged
+    (``staging`` given) or bare."""
+    _check_bf16_cuda("ag_gemm_loopback_cuda", a, b)
+    M, K = a.shape
+    n = b.shape[1]
+    if b.shape[0] != K or not 0 < cols <= n or segments < 1 \
+            or M % segments:
+        raise ValueError(f"loopback shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}, cols {cols}, segments "
+                         f"{segments}")
+    out = torch.empty((M, cols), dtype=a.dtype, device=a.device)
+    # Producer chunks never straddle a segment.
+    chunk_rows = math.gcd(M // segments, STAGE_CHUNK_ROWS)
+    flags = _signal.flags(a.device, "ag_gemm_loopback", M // chunk_rows)
+    ticket = torch.empty(1, dtype=torch.int32, device=a.device)
+    err = _build.lib().tdt_ag_gemm_loopback(
+        a.data_ptr(), None if staging is None else staging.data_ptr(),
+        b.data_ptr(), out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
+        _signal.next_epoch(a.device), M, cols, n, K, chunk_rows,
+        producer_delay_ns, _build.stream_ptr(a))
+    _build.check(err, "tdt_ag_gemm_loopback")
+    AG_LOOPBACK.launches += 1
+    return out
+
+
+def ag_gemm_loopback_cuda(a: torch.Tensor, b: torch.Tensor, *, segments: int,
+                          cols: int, staging: torch.Tensor | None = None,
+                          producer_delay_ns: int = 0
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The staged loopback on the card, one launch: returns ``(a @ b[:,
+    :cols], staged A)``. The kernel's first work items copy A into the
+    staging buffer chunk by chunk and raise a flag per chunk; its consumer
+    tiles wait on the flags of the rows they read. ``staging`` (default: a
+    new buffer) and ``producer_delay_ns`` (every producer item sleeps that
+    long before its copy) let a test poison the buffer and hold the
+    producers back; a delay past the waits' bound (about a second) makes
+    the launch trap."""
+    if staging is None:
+        staging = torch.empty_like(a)
+    elif (staging.shape != a.shape or staging.dtype != a.dtype
+          or staging.device != a.device or not staging.is_contiguous()):
+        raise ValueError("staging must be a contiguous twin of A")
+    out1 = _ag_launch(a, b, segments=segments, cols=cols, staging=staging,
+                      producer_delay_ns=producer_delay_ns)
+    return out1, staging
+
+
+def ag_gemm_segmented_bare_cuda(a: torch.Tensor, b: torch.Tensor, *,
+                                segments: int, cols: int) -> torch.Tensor:
+    """The bare variant on the card: the same persistent grid, ticket order
+    and tiles over A itself, with no staging, producer items or waits."""
+    return _ag_launch(a, b, segments=segments, cols=cols, staging=None)
+
+
+def ag_gemm_loopback(a: torch.Tensor, b: torch.Tensor, *, segments: int = 8,
+                     config: AGGEMMConfig | None = None) -> torch.Tensor:
+    """One-chip self-loopback AG-GEMM ``(M, K) x (K, n) -> (M, n)`` (JAX
+    :543): A staged chunk by chunk, in segment order, into a buffer that
+    stands in for the gathered A, a consumer that waits on the arrival
+    flags of the rows it reads on first touch and computes the first
+    ``overlap_cols`` columns in segment order, and ``matmul_tail_into`` for
+    the rest over the staged A. Against the bare matmul it measures what
+    the staging machinery costs."""
+    cols = _split(a, b, segments, config)
+    if a.is_cuda:
+        out1, staged = ag_gemm_loopback_cuda(a, b, segments=segments,
+                                             cols=cols)
+    else:
+        out1, staged = ag_gemm_loopback_ref(a, b, cols=cols)
+    if cols == b.shape[1]:
+        return out1
+    return matmul_tail_into(out1, staged, b, cols)
+
+
+def ag_gemm_segmented_bare(a: torch.Tensor, b: torch.Tensor, *,
+                           segments: int = 8,
+                           config: AGGEMMConfig | None = None
+                           ) -> torch.Tensor:
+    """The loopback's consumer structure without the staging (JAX :631):
+    the same segment-ordered grid and tiles over ``overlap_cols`` and the
+    same tail, reading A straight from the input. bare -> segmented bare is
+    the grid-structure cost; segmented bare -> loopback the staging
+    machinery's."""
+    cols = _split(a, b, segments, config)
+    if a.is_cuda:
+        out1 = ag_gemm_segmented_bare_cuda(a, b, segments=segments,
+                                           cols=cols)
+    else:
+        out1 = segmented_bare_ref(a, b, cols=cols)
+    if cols == b.shape[1]:
+        return out1
+    return matmul_tail_into(out1, a, b, cols)
+
+
+def matmul_tail_into_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                         col_start: int) -> torch.Tensor:
+    """Plain version: ``[c | a @ b[:, col_start:]]``, the product in f32
+    cast to ``c``'s dtype."""
+    tail = torch.matmul(a.float(), b[:, col_start:].float()).to(c.dtype)
+    return torch.cat([c, tail], dim=1)
+
+
+def matmul_tail_into_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                          col_start: int) -> torch.Tensor:
+    """Launch ``csrc/matmul_tail_into.cu`` (bf16) on the current stream."""
+    _check_bf16_cuda("matmul_tail_into_cuda", c, a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=c.dtype, device=c.device)
+    if m == 0:
+        return out
+    err = _build.lib().tdt_matmul_tail_into(
+        c.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        col_start, _build.stream_ptr(a))
+    _build.check(err, "tdt_matmul_tail_into")
+    TAIL_INTO.launches += 1
+    return out
+
+
+def matmul_tail_into(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     col_start: int) -> torch.Tensor:
+    """The split's assembly in one pass (JAX :232): the full ``(m, n)``
+    product whose columns ``[0, col_start)`` are ``c`` and whose rest is
+    ``a @ b[:, col_start:]``, in ``c``'s dtype."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"K mismatch: A has {k}, B has {k2}")
+    if not 0 <= col_start <= n or tuple(c.shape) != (m, col_start):
+        raise ValueError(f"c {tuple(c.shape)} != ({m}, {col_start}) with "
+                         f"col_start in [0, {n}]")
+    if a.is_cuda:
+        return matmul_tail_into_cuda(c, a, b, col_start)
+    return matmul_tail_into_ref(c, a, b, col_start)
+
+
+def _scalar_bf16(s, dtype: torch.dtype) -> torch.Tensor:
+    """``s`` (None = 0) as an f32 scalar cast to ``dtype``, as the TPU
+    kernel's ``s_ref[0].astype(b_ref.dtype)``."""
+    if s is None:
+        s = 0.0
+    return torch.as_tensor(s, dtype=torch.float32).reshape(()).to(dtype)
+
+
+def fused_matmul_step_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                          s=None) -> torch.Tensor:
+    """Plain version: ``c + a @ (b + s)`` in f32, ``b + s`` rounded in b's
+    dtype. Returns a new tensor."""
+    bb = b + _scalar_bf16(s, b.dtype).to(b.device)
+    return c.float() + torch.matmul(a.float(), bb.float())
+
+
+def fused_step_cuda(out: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                    s=None) -> torch.Tensor:
+    """Launch ``csrc/fused_step.cu`` on the current stream: ``out += a @
+    (b + s)`` with ``out`` a contiguous f32 CUDA tensor, ``a``, ``b`` bf16.
+    ``s`` may be None, a number, or a one-element CUDA tensor (read on the
+    card: no host synchronisation)."""
+    _check_bf16_cuda("fused_step_cuda", a, b)
+    if (out.dtype != torch.float32 or not out.is_contiguous()
+            or out.device != a.device):
+        raise ValueError("fused_step_cuda: the accumulator must be a "
+                         "contiguous f32 tensor on the operands' device")
+    m, k = a.shape
+    n = b.shape[1]
+    s_ptr, s_val = None, 0.0
+    if isinstance(s, torch.Tensor):
+        if s.device != a.device or s.numel() != 1:
+            raise ValueError("fused_step_cuda: s must be a one-element "
+                             "tensor on the operands' device")
+        s = s.reshape(1).float().contiguous()
+        s_ptr = s.data_ptr()
+    elif s is not None:
+        s_val = float(s)
+    if m == 0 or n == 0:
+        return out
+    err = _build.lib().tdt_fused_step(
+        out.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), s_ptr,
+        s_val, m, n, k, _build.stream_ptr(a))
+    _build.check(err, "tdt_fused_step")
+    FUSED_STEP.launches += 1
+    return out
+
+
+def fused_matmul_step(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                      s=None) -> torch.Tensor:
+    """One fused accumulate step ``c + a @ (b + s)`` in f32 (JAX :892),
+    ``s`` a scalar (None = 0) cast to b's dtype before the add. ``c`` is
+    updated in place and returned when it is a contiguous f32 tensor (the
+    TPU call's ``input_output_aliases={1: 0}``); otherwise the result is a
+    converted copy, as JAX's ``c.astype(f32)`` is. The JAX version's block
+    sizes are Mosaic's; the CUDA tiles are fixed."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"K mismatch: A has {k}, B has {k2}")
+    if tuple(c.shape) != (m, n):
+        raise ValueError(f"c {tuple(c.shape)} != ({m}, {n})")
+    out = c if c.dtype == torch.float32 and c.is_contiguous() else \
+        c.float().contiguous()
+    if a.is_cuda:
+        return fused_step_cuda(out, a, b, s)
+    return out.copy_(fused_matmul_step_ref(out, a, b, s))
