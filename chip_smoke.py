@@ -27,12 +27,17 @@ script exits non-zero without its result line:
    ``BatchEngine`` must produce each request's per-request ``Engine``
    tokens with chunked prefill and a forced preemption, and its int8/fp8
    pools must give the same tokens warm (prefix cache hit) as cold; both
-   serving steps run with no host read-back;
+   serving steps run with no host read-back; on the dense configs
+   ``Engine(mode="ar")`` must give the xla tokens (attention kernels only)
+   and ``BatchEngine`` over it the per-request ar tokens;
 3. full width, slice 1: Qwen3-1.7B (28 layers, bf16, random weights from a
    seed) serves 4 requests of 2,048 prompt tokens and 64 new tokens
    through ``Engine.serve``; the kernels' launch counts are reset just
    before and read just after, and the prefill logits are held against
-   the xla golden (cosine >= 0.999, max |diff| <= 5% of max |logit|);
+   the xla golden (cosine >= 0.999, max |diff| <= 5% of max |logit|); the
+   same request through ``Engine(mode="ar")`` on the same weights (exact
+   counts: matmul 0, flash prefill 28, flash decode 28 x 63; its logits
+   held with the same bars);
 3b. full width, slice 2: ``BatchEngine(n_slots=8, block_size=16,
    prefill_chunk=256, max_seq_len=4096)`` serves 16 seeded requests (256
    to 2,048 prompt tokens, four opening with a 1,024-token prefix of an
@@ -77,7 +82,23 @@ script exits non-zero without its result line:
    with the counts reset, each count exact. Then the times: each kernel,
    its plain version, the library call and the bound; the loopback at a
    sweep of ``overlap_cols`` (the auto rule's evidence); and bench.py's
-   decomposition under its own names.
+   decomposition under its own names;
+6. the collectives on one card (seeded): the one-shot all-reduce loopback
+   bit-identical to its plain version at bench.py's (128, 5,120) bf16 at
+   world 8 (== 8 x), at (1,000, 384) f32 at world 3, and with every
+   producer held back 1 ms behind NaN staging (every slot then holds x);
+   the EP all-to-all loopback at bench.py's dispatch shape (fp8 tokens,
+   f32 scales, full occupancy) and at ragged counts with chunks of 8, NaN
+   past every count, rows below the counts byte-identical, under
+   ``set_sync_debug_mode("error")``; the notify/wait ring at the
+   tutorial's shape and a long run (with every odd rank's producer
+   delayed) == ``roll(x, 1, 0)``, each NaN queue slot then holding the
+   last chunk pushed into it. Then bench.py's arms once with the counts
+   reset (the M = 128 ar MLP: matmul 2, all-reduce 1; its
+   no-communication twin: matmul 2; the ``torch.matmul`` twin: none; the
+   a2a arm: 1; the tutorial: 1), the times (kernel, plain, library call,
+   bound; the a2a's pieces against one item per chunk) and bench.py's
+   decomposition.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -174,7 +195,26 @@ PRODUCER_DELAY_NS = 1_000_000
 # Phase 5's kernels; the serving paths of phases 3-3c launch none of them.
 OVERLAP_KERNELS = ("ag_gemm_loopback", "matmul_tail_into",
                    "gemm_rs_loopback", "fused_step")
-NO_OVERLAP = dict.fromkeys(OVERLAP_KERNELS, 0)
+
+# Phase 6: the collectives on one card. bench.py's M = 128 all-reduce-mode
+# MLP arm at Qwen3-32B TP = 8 per-rank shapes (bench.py:2990-3053): x (128,
+# 5,120), w_gate_up (5,120, 6,400), w_down (3,200, 5,120), a one-shot
+# all-reduce loopback at world 8; its EP all-to-all dispatch arm
+# (:2763-2804): (8, 128, 7,168) fp8 tokens and (8, 128, 128) f32 scales,
+# capacity 128, chunk_rows 128, world 8, full occupancy (and 13 rows a slot,
+# ~10%, beside it); the notify/wait tutorial at world 8 (chunks of (4, 128)
+# f32, 4 a rank: tutorials/01-distributed-notify-wait.py:54-55) and a long
+# run of 256 chunks of (64, 128) that reuses each queue slot 128 times.
+AR_M, AR_D, AR_FF, AR_WORLD = 128, 5120, 3200, 8
+A2A_WORLD, A2A_CAP, A2A_HIDDEN, A2A_SCALE_COLS = 8, 128, 7168, 128
+A2A_LOW_COUNT = 13
+A2A_RAGGED_COUNTS, A2A_RAGGED_CHUNK = [0, 1, 7, 8, 9, 64, 127, 128], 8
+TUTORIAL_SHAPE, TUTORIAL_CHUNK = (8, 16, 128), 4
+LONG_RUN_SHAPE, LONG_RUN_CHUNK = (8, 256 * 64, 128), 64
+ODD_RANK_DELAY_NS = 50_000
+COLLECTIVE_KERNELS = ("oneshot_ar_loopback", "a2a_loopback", "notify_wait")
+# Phases 5 and 6's kernels: the serving paths launch none of them.
+NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS, 0)
 
 
 def say(*parts):
@@ -633,6 +673,46 @@ def phase_small_engines(Engine, BatchEngine, ModelConfig, kernels):
         say(f"phase 2: {name} fp32 B=8 L0=8 gen 6: dist == xla tokens, "
             f"launches {counts}")
         small_serving(name, dist, BatchEngine, kernels)
+        if not cfg.n_experts:
+            small_ar(name, Engine(cfg, mode="ar", device="cuda",
+                                  params=dist.params), ids, want,
+                     BatchEngine, kernels)
+
+
+def small_ar(name, ar, ids, want, BatchEngine, kernels):
+    """The all-reduce mode on a small fp32 config: ``Engine(mode="ar")``
+    gives the xla tokens through the attention kernels alone (its products
+    are ``torch.matmul``), and ``BatchEngine`` over it gives each request's
+    per-request ar tokens."""
+    kernels.reset_counts()
+    got = ar.serve(ids, 6)
+    counts = {k: v.launches for k, v in kernels.KERNELS.items()}
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 2 {name}: ar tokens {got.tolist()} != "
+                             f"xla tokens {want.tolist()}")
+    used = {k for k, n in counts.items() if n}
+    if used != {"flash_prefill", "flash_decode"}:
+        raise AssertionError(f"phase 2 {name}: ar launches {counts}")
+    g = torch.Generator().manual_seed(11)
+    prompts = [torch.randint(0, ar.config.vocab_size, (n,),
+                             generator=g).tolist() for n in (7, 9, 5, 6)]
+    be = BatchEngine(ar, n_slots=3, n_blocks=8, block_size=4,
+                     prefill_chunk=4)
+    rids = [be.submit(p, 6) for p in prompts]
+    kernels.reset_counts()
+    out = be.run(max_steps=500)
+    served = {k: v.launches for k, v in kernels.KERNELS.items() if v.launches}
+    for rid, p in zip(rids, prompts):
+        one = ar.serve(torch.tensor([p], device=ar.device), 6)[0].tolist()
+        if out[rid] != one:
+            raise AssertionError(f"phase 2 {name}: ar BatchEngine "
+                                 f"{out[rid]} != ar Engine {one}")
+    if set(served) != {"paged_attention"}:
+        raise AssertionError(f"phase 2 {name}: ar BatchEngine launches "
+                             f"{served}")
+    say(f"phase 2: {name} ar: Engine == xla tokens (launches {used}), "
+        f"BatchEngine == per-request ar Engine for 4 requests, "
+        f"{be.metrics['preemptions']} preemptions, launches {served}")
 
 
 def steps_never_sync(name, eng, BatchEngine, prompts):
@@ -729,7 +809,7 @@ def phase_full_width(Engine, ModelConfig, kernels):
     launches = {k: v.launches for k, v in kernels.KERNELS.items()}
     expected = {"matmul": 4 * cfg.n_layers, "flash_prefill": cfg.n_layers,
                 "flash_decode": cfg.n_layers * (GEN - 1),
-                "paged_attention": 0, "grouped_gemm": 0, **NO_OVERLAP}
+                "paged_attention": 0, "grouped_gemm": 0, **NOT_SERVED}
     say(f"phase 3: serve B={B} L0={L0} gen={GEN} launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -760,9 +840,47 @@ def phase_full_width(Engine, ModelConfig, kernels):
     say(f"phase 3: TTFT {ttft * 1e3:.2f} ms (prefill of {B}x{L0} + argmax), "
         f"serve {t_serve:.3f} s, decode {B * (GEN - 1) / decode_s:.1f} "
         f"tokens/s ({B} rows), on {card_line()}")
-    del xla, x_logits
+    del xla
+    ar_full_width(Engine, cfg, eng, ids, x_logits, kernels)
+    del x_logits
     decode_profile(eng, ids)
     return launches, eng
+
+
+def ar_full_width(Engine, cfg, eng, ids, x_logits, kernels):
+    """Phase 3's request through ``Engine(mode="ar")`` on the same weights
+    (shared, not copied): the launch counts exact (the products are
+    ``torch.matmul``; the attention runs the flash kernels; the world-1
+    all-reduce is the identity), the prefill logits held against the xla
+    golden with phase 3's bars."""
+    ar = Engine(cfg, mode="ar", device="cuda", params=eng.params)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    tokens = ar.serve(ids, GEN)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    expected = {"matmul": 0, "flash_prefill": cfg.n_layers,
+                "flash_decode": cfg.n_layers * (GEN - 1),
+                "paged_attention": 0, "grouped_gemm": 0, **NOT_SERVED}
+    say(f"phase 3: ar serve B={B} L0={L0} gen={GEN} launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"ar launch counts {launches} != {expected}")
+    if tokens.shape != (B, GEN) or not ((tokens >= 0)
+                                        & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"ar tokens {tokens.shape} out of range")
+    t0 = time.perf_counter()
+    logits, _ = ar.prefill(ids, ar.new_cache(B))
+    torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    if not golden_bars("phase 3: ar prefill logits vs xla", logits,
+                       x_logits):
+        raise AssertionError("ar prefill logits disagree with the xla golden")
+    decode_s = max(t_serve - ttft, 1e-9)
+    say(f"phase 3: ar TTFT {ttft * 1e3:.2f} ms, serve {t_serve:.3f} s, "
+        f"decode {B * (GEN - 1) / decode_s:.1f} tokens/s ({B} rows)")
 
 
 # -- phase 3b ----------------------------------------------------------------
@@ -899,7 +1017,7 @@ def phase_serving(eng, Engine, BatchEngine, kernels, pools=POOLS,
         expected = {"matmul": (2 if moe else 4) * L * m["prefill_steps"],
                     "grouped_gemm": 2 * L * steps if moe else 0,
                     "flash_prefill": 0, "flash_decode": 0,
-                    "paged_attention": L * steps, **NO_OVERLAP}
+                    "paged_attention": L * steps, **NOT_SERVED}
         say(f"{phase}: {kv or 'bf16'} pool: {m['requests_completed']} "
             f"requests, {m['decode_steps']} decode + {m['prefill_steps']} "
             f"mixed steps, launches {launches} (expected {expected})")
@@ -1136,7 +1254,7 @@ def phase_moe_full_width(Engine, ModelConfig, kernels, MoEMLP, nn, tmu,
     spy.check("phase 3c: serve", held_caps)
     expected = {"matmul": 2 * L, "grouped_gemm": 2 * L * MOE_GEN,
                 "flash_prefill": L, "flash_decode": L * (MOE_GEN - 1),
-                "paged_attention": 0, **NO_OVERLAP}
+                "paged_attention": 0, **NOT_SERVED}
     say(f"phase 3c: serve B={B} L0={L0} gen={MOE_GEN} launches {launches} "
         f"(expected {expected})")
     if launches != expected:
@@ -1663,6 +1781,354 @@ def phase_overlap(gen, tg, trs, kernels, card):
     return launches, err, rows
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def mlp_arm(tg, tar, TPMLP, x, w_gate_up, w_down, comm: bool):
+    """bench.py's M = 128 arm through the port's entry points: the matmul
+    kernel's GEMMs and the GLU, then (``comm``) the one-shot all-reduce
+    loopback at world 8 (``body_small_ar``), or not (``body_small_pallas``,
+    the no-communication twin)."""
+    h = TPMLP._glu(tg.ag_gemm_single_chip(x, w_gate_up))
+    partial = tg.ag_gemm_single_chip(h, w_down)
+    return tar.oneshot_ar_loopback(partial, world=AR_WORLD) if comm \
+        else partial
+
+
+def mlp_torch(TPMLP, x, w_gate_up, w_down):
+    """bench.py's ``body_small_xla``: library GEMMs + GLU, no
+    communication (a world-1 all-reduce is free)."""
+    return torch.matmul(TPMLP._glu(torch.matmul(x, w_gate_up)), w_down)
+
+
+def a2a_inputs(gen, counts):
+    """bench.py's dispatch payloads: fp8 tokens and f32 scales, every row
+    at or past its slot's count poisoned (fp8 0x7f and f32 NaN are NaN)."""
+    toks = randn(gen, A2A_WORLD, A2A_CAP, A2A_HIDDEN,
+                 dtype=torch.float32).to(torch.float8_e4m3fn)
+    scales = torch.rand(A2A_WORLD, A2A_CAP, A2A_SCALE_COLS, generator=gen,
+                        device="cuda")
+    counts = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    live = (torch.arange(A2A_CAP, device="cuda")[None]
+            < counts.clamp(0, A2A_CAP)[:, None])
+    toks.view(torch.uint8)[~live] = 0x7F
+    scales[~live] = float("nan")
+    return toks, scales, counts, live
+
+
+def check_a2a(label, tea, toks, scales, counts, live, chunk_rows):
+    """The kernel under set_sync_debug_mode("error") (no host read of the
+    counts) against the plain version: rows below each count byte-identical,
+    the received counts equal. Returns max |got - want| over those rows."""
+    ctx = tea.AllToAllContext(capacity=A2A_CAP, hidden=A2A_HIDDEN,
+                              chunk_rows=chunk_rows)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (gt, gs), rc = tea.a2a_loopback((toks, scales), counts, ctx=ctx,
+                                        world=A2A_WORLD)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    (wt, ws), wrc = tea.a2a_loopback_ref((toks, scales), counts, ctx=ctx,
+                                         world=A2A_WORLD)
+    m = live[..., None]
+    same = (torch.equal(rc, wrc) and torch.equal(rc, counts)
+            and torch.equal(gt.view(torch.uint8) * m, wt.view(torch.uint8) * m)
+            and torch.equal(gs.view(torch.int32) * m, ws.view(torch.int32) * m))
+    if not same:
+        raise AssertionError(f"phase 6: a2a_loopback {label}: rows below the "
+                             f"counts or the counts differ")
+    err = max(torch.where(m, gt.float() - wt.float(), 0).abs().max().item(),
+              torch.where(m, gs - ws, 0).abs().max().item())
+    say(f"phase 6: a2a_loopback {label}: rows below the counts "
+        f"byte-identical, received counts {rc.tolist()} (read after the "
+        f"check), no host read inside the call")
+    return err
+
+
+def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
+    """Mean device time of the kernel whose name holds ``kernel`` over n
+    calls of fn, each after an L2 flush, from torch.profiler's kernel
+    records: the card's share alone, without the host's launch path that
+    CUDA events around a short call also catch. The mean is over the
+    launches the profiler recorded (it may miss a few of n)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and kernel in ev.key]
+    seen = sum(ev.count for ev in evs)
+    if not 0 < seen <= n:
+        raise AssertionError(f"the profiler saw {seen} launches of {kernel} "
+                             f"in {n} calls")
+    return sum(ev.self_device_time_total for ev in evs) / seen / 1e3
+
+
+def queue_after(x, chunk_rows):
+    """What the ring's queue holds after a run of at least two chunks: rank
+    r's slot s holds the last chunk that rank r - 1 pushed into it (chunk c
+    goes to slot c % 2)."""
+    n = x.shape[1] // chunk_rows
+    chunks = torch.roll(x, 1, 0).view(x.shape[0], n, chunk_rows,
+                                      *x.shape[2:])
+    return chunks[:, [n - 1 - (n - 1 - s) % 2 for s in range(2)]]
+
+
+def phase_collectives(gen, kernels, card):
+    """Phase 6: returns (launches, max abs errors, times) of the three
+    collective kernels."""
+    from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+    from triton_distributed_tpu_torch.kernels import allreduce as tar
+    from triton_distributed_tpu_torch.kernels import ep_all_to_all as tea
+    from triton_distributed_tpu_torch.kernels import notify_wait as tnw
+    from triton_distributed_tpu_torch.layers import TPMLP
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    bf16 = torch.bfloat16
+    x = randn(gen, AR_M, AR_D)
+    w_gate_up = randn(gen, AR_D, 2 * AR_FF, scale=AR_D ** -0.5)
+    w_down = randn(gen, AR_FF, AR_D, scale=AR_FF ** -0.5)
+    err = dict.fromkeys(COLLECTIVE_KERNELS, 0.0)
+
+    # (a) Each kernel against its plain version.
+    partial = mlp_arm(tg, tar, TPMLP, x, w_gate_up, w_down, comm=False)
+    xf = randn(gen, 1000, 384, dtype=torch.float32)
+    for label, t, world in (("(128, 5120) bf16 world 8", partial, AR_WORLD),
+                            ("(1000, 384) f32 world 3", xf, 3)):
+        got = tar.oneshot_ar_loopback_cuda(t, world=world)
+        want = tar.oneshot_ar_loopback_ref(t, world=world)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 6: oneshot_ar_loopback {label}: "
+                                 f"not bit-identical to the plain version")
+        if world == AR_WORLD and not torch.equal(got, 8 * t):
+            raise AssertionError("phase 6: oneshot_ar_loopback != 8 x")
+        say(f"phase 6: oneshot_ar_loopback {label}: bit-identical to the "
+            f"plain version" + (", == 8 x" if world == AR_WORLD else ""))
+    undelayed = tar.oneshot_ar_loopback_cuda(partial, world=AR_WORLD)
+    staging = torch.full((AR_WORLD - 1, *partial.shape), float("nan"),
+                         dtype=bf16, device="cuda")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    delayed = tar.oneshot_ar_loopback_cuda(partial, world=AR_WORLD,
+                                           staging=staging,
+                                           producer_delay_ns=PRODUCER_DELAY_NS)
+    t1.record()
+    torch.cuda.synchronize()
+    if not torch.equal(delayed, undelayed):
+        raise AssertionError("phase 6: the delayed producers changed the "
+                             "all-reduce loopback's result")
+    # The pushes landed: every slot now holds x, so the fold read them.
+    if not torch.equal(staging, partial.expand_as(staging)):
+        raise AssertionError("phase 6: a staging slot does not hold x after "
+                             "the all-reduce loopback")
+    say(f"phase 6: oneshot_ar_loopback with every producer held back 1 ms "
+        f"behind NaN staging: call took {t0.elapsed_time(t1):.3f} ms, "
+        f"result bit-identical to the undelayed run, every slot == x")
+    del staging, delayed, undelayed, xf
+
+    full = a2a_inputs(gen, [A2A_CAP] * A2A_WORLD)
+    err["a2a_loopback"] = max(
+        check_a2a("bench shape, full occupancy, chunk_rows 128", tea, *full,
+                  A2A_CAP),
+        check_a2a(f"counts {A2A_RAGGED_COUNTS}, chunk_rows "
+                  f"{A2A_RAGGED_CHUNK}", tea,
+                  *a2a_inputs(gen, A2A_RAGGED_COUNTS), A2A_RAGGED_CHUNK))
+
+    tut = randn(gen, *TUTORIAL_SHAPE, dtype=torch.float32)
+    long_run = randn(gen, *LONG_RUN_SHAPE, dtype=torch.float32)
+    for label, t, ch, delay in (
+            ("tutorial shape", tut, TUTORIAL_CHUNK, 0),
+            ("long run", long_run, LONG_RUN_CHUNK, 0),
+            ("long run, odd ranks' producers delayed", long_run,
+             LONG_RUN_CHUNK, ODD_RANK_DELAY_NS)):
+        queue = torch.full((t.shape[0], 2, ch, *t.shape[2:]), float("nan"),
+                           device="cuda")
+        got = tnw.producer_consumer_cuda(t, chunk_rows=ch, queue=queue,
+                                         producer_delay_ns=delay)
+        if not torch.equal(got, torch.roll(t, 1, 0)):
+            raise AssertionError(f"phase 6: notify_wait {label}: out != "
+                                 f"roll(x, 1, 0)")
+        if not torch.equal(queue, queue_after(t, ch)):
+            raise AssertionError(f"phase 6: notify_wait {label}: the queue "
+                                 f"does not hold the last pushes")
+        say(f"phase 6: notify_wait {label} {tuple(t.shape)}, chunks of "
+            f"{ch} rows: out == roll(x, 1, 0), each NaN queue slot holds "
+            f"the last chunk pushed into it")
+
+    # (b) The path, once, with the counts reset: bench.py's arms.
+    a2a_ctx = tea.AllToAllContext(capacity=A2A_CAP, hidden=A2A_HIDDEN,
+                                  chunk_rows=A2A_CAP)
+    toks, scales, counts, _ = full
+    arms = {
+        "ar arm": (lambda: mlp_arm(tg, tar, TPMLP, x, w_gate_up, w_down,
+                                   comm=True),
+                   {"matmul": 2, "oneshot_ar_loopback": 1}),
+        "no-communication arm": (lambda: mlp_arm(
+            tg, tar, TPMLP, x, w_gate_up, w_down, comm=False),
+            {"matmul": 2}),
+        "torch.matmul arm": (lambda: mlp_torch(TPMLP, x, w_gate_up, w_down),
+                             {}),
+        "a2a arm": (lambda: tea.a2a_loopback((toks, scales), counts,
+                                             ctx=a2a_ctx, world=A2A_WORLD),
+                    {"a2a_loopback": 1}),
+        "tutorial": (lambda: tnw.producer_consumer(
+            tut, chunk_rows=TUTORIAL_CHUNK), {"notify_wait": 1}),
+    }
+    kernels.reset_counts()
+    outs, before = {}, {k: 0 for k in kernels.KERNELS}
+    for label, (fn, want) in arms.items():
+        outs[label] = fn()
+        now = {k: v.launches for k, v in kernels.KERNELS.items()}
+        diff = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+        if diff != want:
+            raise AssertionError(f"phase 6: {label} launches {diff} != "
+                                 f"{want}")
+        before = now
+    torch.cuda.synchronize()
+    launches = {k: before[k] for k in COLLECTIVE_KERNELS}
+    say(f"phase 6: path launches {launches}, each arm's exact")
+    if not torch.equal(outs["ar arm"], 8 * outs["no-communication arm"]):
+        raise AssertionError("phase 6: the ar arm != 8 x the "
+                             "no-communication arm")
+    check_close("phase 6: torch.matmul arm vs the kernels'",
+                outs["no-communication arm"], outs["torch.matmul arm"], bf16)
+    (ot, osc), orc = outs["a2a arm"]
+    if not (torch.equal(ot.view(torch.uint8), toks.view(torch.uint8))
+            and torch.equal(osc, scales) and torch.equal(orc, counts)):
+        raise AssertionError("phase 6: a2a arm did not round-trip")
+    if not torch.equal(outs["tutorial"], torch.roll(tut, 1, 0)):
+        raise AssertionError("phase 6: tutorial path != roll(x, 1, 0)")
+    del outs
+
+    # (c) Times.
+    timer = Timer("cuda")
+    rows = {}
+    nbytes = partial.numel() * partial.element_size()
+    t_k = timer(lambda: tar.oneshot_ar_loopback_cuda(partial,
+                                                     world=AR_WORLD), reps=50)
+    t_p = timer(lambda: tar.oneshot_ar_loopback_ref(partial, world=AR_WORLD),
+                reps=20)
+    t_d = kernel_device_ms(lambda: tar.oneshot_ar_loopback_cuda(
+        partial, world=AR_WORLD), "ar_loopback_kernel")
+    t_l = timer(lambda: partial.mul(AR_WORLD), reps=50)
+    t_b, by = bound_ms(0, pm.oneshot_ar_loopback_bytes(nbytes))
+    rows["oneshot_ar_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                       bound_ms=t_b, bound_by=by)
+    say(f"phase 6: oneshot_ar_loopback (128, 5120) bf16 world 8: kernel "
+        f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, "
+        f"x.mul(8) (the same bits) {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) "
+        f"[{card}]")
+
+    a2a_rows = [A2A_HIDDEN, A2A_SCALE_COLS * 4]
+    low = a2a_inputs(gen, [A2A_LOW_COUNT] * A2A_WORLD)
+    a2a_t = {}
+    for label, (tk, sc, cn, _) in (("full", full), ("10%", low)):
+        def call():
+            return tea.a2a_loopback_cuda((tk, sc), cn, ctx=a2a_ctx,
+                                         world=A2A_WORLD)
+        a2a_t[label] = (
+            timer(call, reps=50),
+            kernel_device_ms(call, "a2a_loopback_kernel"),
+            bound_ms(0, pm.a2a_loopback_bytes(cn.tolist(), A2A_CAP,
+                                              a2a_rows)))
+    t_k, t_d, (t_b, by) = a2a_t["full"]
+    t_p = timer(lambda: tea.a2a_loopback_ref((toks, scales), counts,
+                                             ctx=a2a_ctx, world=A2A_WORLD),
+                reps=20)
+    dst_t, dst_s = torch.empty_like(toks), torch.empty_like(scales)
+    t_l = timer(lambda: (dst_t.copy_(toks), dst_s.copy_(scales)), reps=50)
+    rows["a2a_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                bound_ms=t_b, bound_by=by)
+    say(f"phase 6: a2a_loopback bench shape, full occupancy: kernel "
+        f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, copy_ "
+        f"of both payloads {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+    lk, ld, (lb, _) = a2a_t["10%"]
+    say(f"phase 6: a2a_loopback at {A2A_LOW_COUNT} rows a slot (~10%): "
+        f"kernel {lk:.4f} ms (device alone {ld:.4f}), bound {lb:.4f} ms; "
+        f"full / 10% time {t_k / lk:.2f}x (device {t_d / ld:.2f}x) for "
+        f"{t_b / lb:.2f}x the bytes [{card}]")
+    # The pieces inside a chunk against one work item per chunk: the
+    # kernel's device time (the host's path is the same for both), in turns.
+    pieces = {tea.PIECE_BYTES: [], A2A_CAP * A2A_HIDDEN: []}
+    (ct, cs), _ = tea.a2a_loopback_cuda((toks, scales), counts, ctx=a2a_ctx,
+                                        world=A2A_WORLD,
+                                        piece_bytes=A2A_CAP * A2A_HIDDEN)
+    if not (torch.equal(ct.view(torch.uint8), toks.view(torch.uint8))
+            and torch.equal(cs, scales)):
+        raise AssertionError("phase 6: a2a_loopback with one item per chunk "
+                             "did not round-trip")
+    for rnd in range(DECOMPOSITION_ROUNDS):
+        for pb in (list(pieces) if rnd % 2 == 0 else list(pieces)[::-1]):
+            pieces[pb].append(kernel_device_ms(lambda: tea.a2a_loopback_cuda(
+                (toks, scales), counts, ctx=a2a_ctx, world=A2A_WORLD,
+                piece_bytes=pb), "a2a_loopback_kernel", n=10))
+    t_pc, t_ch = (statistics.median(v) for v in pieces.values())
+    say(f"phase 6: a2a_loopback full occupancy, device alone, median of "
+        f"{DECOMPOSITION_ROUNDS} rounds: pieces of {tea.PIECE_BYTES} B "
+        f"{t_pc:.4f} ms, one item per chunk {t_ch:.4f} ms [{card}]")
+
+    tut_rows = {}
+    for label, t, ch in (("tutorial shape", tut, TUTORIAL_CHUNK),
+                         ("long run", long_run, LONG_RUN_CHUNK)):
+        nb = pm.producer_consumer_bytes(t.numel() * t.element_size())
+        t_k = timer(lambda: tnw.producer_consumer_cuda(t, chunk_rows=ch),
+                    reps=50)
+        t_p = timer(lambda: tnw.producer_consumer_ref(t, chunk_rows=ch),
+                    reps=50)
+        t_d = kernel_device_ms(lambda: tnw.producer_consumer_cuda(
+            t, chunk_rows=ch), "notify_wait_kernel")
+        t_l = timer(lambda: torch.roll(t, 1, 0), reps=50)
+        t_b, by = bound_ms(0, nb)
+        tut_rows[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                               bound_ms=t_b, bound_by=by)
+        say(f"phase 6: notify_wait {label} {tuple(t.shape)}: kernel "
+            f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, "
+            f"torch.roll {t_l:.4f} ms, bound {t_b:.6f} ms ({by}) [{card}]")
+    rows["notify_wait"] = tut_rows["tutorial shape"]
+
+    # bench.py's decomposition (:3108, :3119-3126): the arms timed in turns,
+    # the order reversed every round, the median of the rounds kept.
+    dec_arms = {name: arms[label][0] for name, label in (
+        ("ar", "ar arm"), ("nocomm", "no-communication arm"),
+        ("xla", "torch.matmul arm"), ("a2a", "a2a arm"))}
+    tk, sc, cn, _ = low
+    dec_arms["a2a_low"] = lambda: tea.a2a_loopback(
+        (tk, sc), cn, ctx=a2a_ctx, world=A2A_WORLD)
+    rounds = {name: [] for name in dec_arms}
+    order = list(dec_arms)
+    for rnd in range(DECOMPOSITION_ROUNDS):
+        for name in (order if rnd % 2 == 0 else order[::-1]):
+            rounds[name].append(timer(dec_arms[name], reps=10))
+    t = {name: statistics.median(v) for name, v in rounds.items()}
+    a2a_bound = a2a_t["full"][2][0]
+    dec = {
+        "mlp_m128_ar_loopback_ms": t["ar"],
+        "mlp_m128_pallas_nocomm_ms": t["nocomm"],
+        "mlp_m128_xla_free_comm_ms": t["xla"],
+        "mlp_m128_weight_stream_floor_ms": bound_ms(
+            0, (AR_D * 2 * AR_FF + AR_FF * AR_D) * 2)[0],
+        "mlp_m128_ar_machinery_ms": t["ar"] - t["nocomm"],
+        "mlp_m128_ar_ratio": t["xla"] / t["ar"],
+        "a2a_dispatch_loopback_us": t["a2a"] * 1e3,
+        "a2a_loopback_hbm_frac": a2a_bound / t["a2a"],
+        "a2a_dispatch_loopback_10pct_us": t["a2a_low"] * 1e3,
+    }
+    for key, v in dec.items():
+        say(f"phase 6: {key} = {v:.4f} [{card}]")
+    return launches, err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1736,6 +2202,12 @@ def main() -> int:
     launches.update(overlap_launches)
     err.update(overlap_err)
     times.update(overlap_times)
+    free_card()
+    coll_launches, coll_err, coll_times = phase_collectives(gen, kernels,
+                                                            card)
+    launches.update(coll_launches)
+    err.update(coll_err)
+    times.update(coll_times)
 
     record = []
     for name, kern in kernels.KERNELS.items():

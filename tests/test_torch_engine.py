@@ -111,8 +111,9 @@ def test_serve_rejects_overlong_requests():
 
 def test_modes_and_families_not_ported_raise():
     cfg = ModelConfig.from_name("tiny")
-    with pytest.raises(ValueError, match="ar"):
-        Engine(cfg, mode="ar", device="cpu")
+    with pytest.raises(ValueError, match="mode"):
+        Engine(cfg, mode="sp", device="cpu")
+    assert Engine(cfg, mode="ar", device="cpu").mode == "ar"
     # An MoE FFN has no all-reduce mode, as in the JAX stack (qwen.py:340).
     moe = ModelConfig.from_name("tiny-moe")
     with pytest.raises(ValueError, match="ar"):

@@ -16,8 +16,11 @@ import torch
 from triton_distributed_tpu_torch import BatchEngine, Engine, ModelConfig
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+from triton_distributed_tpu_torch.kernels import allreduce as tar
+from triton_distributed_tpu_torch.kernels import ep_all_to_all as tea
 from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
 from triton_distributed_tpu_torch.kernels import moe_utils as tmu
+from triton_distributed_tpu_torch.kernels import notify_wait as tnw
 from triton_distributed_tpu_torch.kernels import paged_attention as tpa
 from triton_distributed_tpu_torch.kernels import sp_attention as tsp
 from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
@@ -472,3 +475,107 @@ def test_consumer_whose_flag_does_not_arrive_raises(cuda):
     # kernel's own line names the flag when the printf buffer is flushed.
     assert "timed out" in out or "launch failure" in out, out
     assert time.perf_counter() - t0 < 60
+
+
+# -- the collectives on one card ------------------------------------------
+
+
+@pytest.mark.parametrize("shape,dtype,world", [
+    ((128, 5120), torch.bfloat16, 8), ((1000, 384), torch.float32, 3),
+    ((7, 3, 5), torch.float32, 2), ((9,), torch.bfloat16, 1)])
+def test_oneshot_ar_loopback_kernel_is_bit_identical(cuda, shape, dtype,
+                                                     world):
+    """Vector and scalar paths, ragged chunks, world 1: bit for bit the
+    plain version's fold; bf16 at world 8 is exactly 8 x."""
+    gen = torch.Generator(device=cuda).manual_seed(world)
+    x = _randn(gen, *shape, dtype=dtype)
+    _build.reset_counts()
+    got = tar.oneshot_ar_loopback(x, world=world)
+    torch.cuda.synchronize()
+    assert tar.ONESHOT_AR_LOOPBACK.launches == 1
+    assert torch.equal(got, tar.oneshot_ar_loopback_ref(x, world=world))
+    if dtype == torch.bfloat16 and world == 8:
+        assert torch.equal(got, 8 * x)
+
+
+def test_oneshot_ar_loopback_waits_for_delayed_producers(cuda):
+    """Every producer item held back 1 ms behind NaN-poisoned staging: the
+    folds must wait on the flags, so the result does not change, and every
+    slot then holds x (the pushes landed)."""
+    x = _randn(torch.Generator(device=cuda).manual_seed(2), 256, 384,
+               dtype=torch.bfloat16)
+    want = tar.oneshot_ar_loopback_cuda(x, world=8)
+    staging = torch.full((7, 256, 384), float("nan"), dtype=x.dtype,
+                         device=cuda)
+    got = tar.oneshot_ar_loopback_cuda(x, world=8, staging=staging,
+                                       producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, 8 * x)
+    assert torch.equal(staging, x.expand_as(staging))
+
+
+@pytest.mark.parametrize("chunk_rows", [8, 128])
+def test_a2a_loopback_kernel_matches_plain_without_host_reads(cuda,
+                                                               chunk_rows):
+    """fp8 tokens (NaN past each count) and f32 scales over counts that
+    include 0, 1, chunk edges, capacity, past capacity and below zero, under
+    set_sync_debug_mode("error"): rows below each count byte-identical, the
+    received counts unchanged."""
+    world, cap, hidden = 8, 128, 7168
+    gen = torch.Generator(device=cuda).manual_seed(chunk_rows)
+    toks = _randn(gen, world, cap, hidden, dtype=torch.float32).to(
+        torch.float8_e4m3fn)
+    scales = _randn(gen, world, cap, 128, dtype=torch.float32)
+    counts = torch.tensor([0, 1, 7, 8, 9, 128, 200, -3], dtype=torch.int32,
+                          device=cuda)
+    live = (torch.arange(cap, device=cuda)[None]
+            < counts.clamp(0, cap)[:, None])
+    toks.view(torch.uint8)[~live] = 0x7F
+    scales[~live] = float("nan")
+    ctx = tea.AllToAllContext(capacity=cap, hidden=hidden,
+                              chunk_rows=chunk_rows)
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (gt, gs), rc = tea.a2a_loopback((toks, scales), counts, ctx=ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tea.A2A_LOOPBACK.launches == 1
+    assert torch.equal(rc, counts)
+    (wt, ws), _ = tea.a2a_loopback_ref((toks, scales), counts, ctx=ctx)
+    m = live[..., None]
+    assert torch.equal(gt.view(torch.uint8) * m, wt.view(torch.uint8) * m)
+    assert torch.equal(gs.view(torch.int32) * m, ws.view(torch.int32) * m)
+
+
+@pytest.mark.parametrize("shape,chunk_rows,delay_ns", [
+    ((8, 16, 128), 4, 0), ((8, 256 * 64, 128), 64, 0),
+    ((8, 256 * 64, 128), 64, 50_000), ((3, 10, 5), 1, 0), ((1, 8, 4), 4, 0)])
+def test_notify_wait_kernel_is_the_ring_shift(cuda, shape, chunk_rows,
+                                              delay_ns):
+    """The tutorial's shape, the long run (each slot reused 128 times), the
+    long run with every odd rank's producer held back, a byte-wise chunk
+    and a single rank that feeds itself: out == roll(x, 1, 0) exactly, and
+    each NaN-poisoned queue slot holds the last chunk pushed into it."""
+    x = _randn(torch.Generator(device=cuda).manual_seed(shape[1]), *shape,
+               dtype=torch.float32)
+    queue = torch.full((shape[0], 2, chunk_rows, *shape[2:]), float("nan"),
+                       device=cuda)
+    _build.reset_counts()
+    got = tnw.producer_consumer_cuda(x, chunk_rows=chunk_rows, queue=queue,
+                                     producer_delay_ns=delay_ns)
+    torch.cuda.synchronize()
+    assert tnw.NOTIFY_WAIT.launches == 1
+    assert torch.equal(got, torch.roll(x, 1, 0))
+    n = shape[1] // chunk_rows
+    chunks = torch.roll(x, 1, 0).view(shape[0], n, chunk_rows, *shape[2:])
+    assert torch.equal(queue, chunks[:, [n - 1 - (n - 1 - s) % 2
+                                         for s in range(2)]])
+
+
+def test_notify_wait_refuses_ranks_the_card_cannot_hold(cuda):
+    x = torch.zeros(1 << 20, 1, 4, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        tnw.producer_consumer_cuda(x, chunk_rows=1)

@@ -45,7 +45,9 @@ def test_scan_sees_the_whole_port():
                 "scheduler"):
         assert f"triton_distributed_tpu_torch/serving/{mod}.py" in names
     for mod in ("kernels/moe_utils", "layers/moe_mlp", "kernels/_signal",
-                "kernels/gemm_reduce_scatter", "runtime/perf_model"):
+                "kernels/gemm_reduce_scatter", "runtime/perf_model",
+                "kernels/allreduce", "kernels/ep_all_to_all",
+                "kernels/notify_wait"):
         assert f"triton_distributed_tpu_torch/{mod}.py" in names
 
 

@@ -26,7 +26,7 @@
 //   card holds at once) and an atomic ticket hands out work in order:
 //   first the producer items (chunks of gcd(segment rows, 16) rows of A,
 //   in segment order: each copied with 16-byte loads and stores, then its
-//   flag raised to the call's epoch with a release store, signal.cuh),
+//   flag raised to the call's epoch with a release store, language.cuh),
 //   then the consumer tiles (128 x 128 outputs, in segment order). A
 //   producer never waits, and a block takes a ticket only while it runs,
 //   so every flag a consumer waits on belongs to a running producer: no
@@ -39,44 +39,11 @@
 //   ticket order and tiles. delay_ns holds every producer item back before
 //   its copy (a test of the waits: the result must not change).
 #include "gemm_tile.cuh"
-#include "signal.cuh"
+#include "language.cuh"
 
 namespace {
 
 using tdt::gemm::bf16;
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Copy rows [r0, r0 + rows) of A (row length K) into staging: 16-byte
-// moves, eight in flight per thread (VEC), else element by element.
-template <bool VEC>
-__device__ __forceinline__ void copy_rows(const bf16* __restrict__ A,
-                                          bf16* __restrict__ S, int r0,
-                                          int rows, int K) {
-  using tdt::gemm::THREADS;
-  const size_t base = (size_t)r0 * K, n = (size_t)rows * K;
-  if constexpr (VEC) {
-    const uint4* src = reinterpret_cast<const uint4*>(A + base);
-    uint4* dst = reinterpret_cast<uint4*>(S + base);
-    const size_t n16 = n / 8;
-    constexpr int U = 8;
-    size_t i = threadIdx.x;
-    for (; i + (U - 1) * THREADS < n16; i += U * THREADS) {
-      uint4 v[U];
-#pragma unroll
-      for (int u = 0; u < U; ++u) v[u] = __ldcs(src + i + u * THREADS);
-#pragma unroll
-      for (int u = 0; u < U; ++u) __stcg(dst + i + u * THREADS, v[u]);
-    }
-    for (; i < n16; i += THREADS) __stcg(dst + i, __ldcs(src + i));
-  } else {
-    for (size_t i = threadIdx.x; i < n; i += THREADS) S[base + i] = A[base + i];
-  }
-}
 
 template <bool VEC>
 __global__ void __launch_bounds__(tdt::gemm::THREADS)
@@ -86,7 +53,7 @@ __global__ void __launch_bounds__(tdt::gemm::THREADS)
                        int cols, int ldb, int K, int chunk_rows,
                        unsigned long long delay_ns) {
   using namespace tdt::gemm;
-  namespace sig = tdt::signal;
+  namespace lang = tdt::lang;
   extern __shared__ __align__(16) unsigned char smem[];
   const bool staged = S != nullptr;
   const int producers = staged ? M / chunk_rows : 0;
@@ -96,16 +63,11 @@ __global__ void __launch_bounds__(tdt::gemm::THREADS)
     const int t = take_ticket(ticket);
     if (t >= total) return;
     if (t < producers) {  // stage one chunk of rows, then raise its flag
-      if (delay_ns) {
-        const unsigned long long t0 = global_ns();
-        while (global_ns() - t0 < delay_ns) __nanosleep(1000);
-      }
-      copy_rows<VEC>(A, S, t * chunk_rows, chunk_rows, K);
-      __syncthreads();  // every thread's stores precede the release
-      if (threadIdx.x == 0) {
-        __threadfence();
-        sig::notify_flag(flags + t, epoch);
-      }
+      const size_t base = (size_t)t * chunk_rows * K;
+      lang::sleep_ns(delay_ns);
+      lang::putmem_signal(S + base, A + base,
+                          (size_t)chunk_rows * K * sizeof(bf16), flags + t,
+                          epoch);
       continue;
     }
     const int tile = t - producers;  // tiles in segment order
@@ -114,7 +76,7 @@ __global__ void __launch_bounds__(tdt::gemm::THREADS)
       if (threadIdx.x == 0) {
         const int last = min(m0 + BM, M) - 1;
         for (int c = m0 / chunk_rows; c <= last / chunk_rows; ++c)
-          sig::wait_flag(flags + c, epoch);
+          lang::wait(flags + c, epoch);
       }
       __syncthreads();
     }

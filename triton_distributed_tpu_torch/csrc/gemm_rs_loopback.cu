@@ -24,12 +24,12 @@
 //   is held by a running block that never waits: no deadlock, whatever
 //   the dispatch order. Each tile runs gemm_tile.cuh's mma.sync main loop;
 //   a producer stores its bf16 tile, meets its block at a barrier, and
-//   thread 0 raises the flag with a release store (signal.cuh); an owner
+//   thread 0 raises the flag with a release store (language.cuh); an owner
 //   keeps its own partial in f32 registers and, for src = 0 .. S-2 in
 //   order, waits on staging[src]'s tile flag, meets the block, and adds
 //   the staged bf16 partial (loaded through L2 only), then casts once.
 #include "gemm_tile.cuh"
-#include "signal.cuh"
+#include "language.cuh"
 
 namespace {
 
@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(tdt::gemm::THREADS)
                    int* ticket, uint32_t epoch, int segments, int m, int N,
                    int K, int tiles_m, int tiles_n) {
   using namespace tdt::gemm;
-  namespace sig = tdt::signal;
+  namespace lang = tdt::lang;
   extern __shared__ __align__(16) unsigned char smem[];
   const int per_seg = tiles_m * tiles_n;
   const int remote = (segments - 1) * per_seg;
@@ -65,13 +65,13 @@ __global__ void __launch_bounds__(tdt::gemm::THREADS)
       __syncthreads();  // every thread's stores precede the release
       if (threadIdx.x == 0) {
         __threadfence();
-        sig::notify_flag(flags + (size_t)(dst - 1) * per_seg + r, epoch);
+        lang::notify(flags + (size_t)(dst - 1) * per_seg + r, epoch);
       }
       continue;
     }
     for (int src = 0; src < segments - 1; ++src) {
       if (threadIdx.x == 0)
-        sig::wait_flag(flags + (size_t)src * per_seg + r, epoch);
+        lang::wait(flags + (size_t)src * per_seg + r, epoch);
       __syncthreads();
       const bf16* S = staging + (size_t)src * m * N;
       for_each_pair(acc, m0, n0, [&](int gr, int gc, float& x0, float& x1) {

@@ -277,7 +277,7 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
 }
 
 // --- persistent grids with ticketed work (ag_gemm_loopback.cu,
-// gemm_rs_loopback.cu) ---
+// gemm_rs_loopback.cu, oneshot_ar_loopback.cu, a2a_loopback.cu) ---
 
 // The block's next work item: thread 0 takes a ticket from the counter and
 // every thread of the block gets it. Ends at a barrier, so thread 0 may
@@ -291,15 +291,14 @@ __device__ __forceinline__ int take_ticket(int* counter) {
   return t;
 }
 
-// Blocks of a persistent grid for a kernel of THREADS threads and
-// SMEM_BYTES of dynamic shared memory: as many as the card holds at once,
-// and no more than `work` items. A block that waits on another's item can
-// then rely on that item being held by a running block, if items are
-// handed out by take_ticket in an order where every item waited on comes
-// first.
+// Blocks of a persistent grid for a kernel of `threads` threads and `smem`
+// bytes of dynamic shared memory: as many as the card holds at once, and no
+// more than `work` items. A block that waits on another's item can then
+// rely on that item being held by a running block, if items are handed out
+// by take_ticket in an order where every item waited on comes first.
 template <class Kernel>
-inline cudaError_t persistent_blocks(Kernel kernel, long long work,
-                                     unsigned* blocks) {
+inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                                     long long work, unsigned* blocks) {
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -307,12 +306,19 @@ inline cudaError_t persistent_blocks(Kernel kernel, long long work,
                                  device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        THREADS, SMEM_BYTES);
+                                                        threads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long cap = (long long)per_sm * sms;
   *blocks = (unsigned)(work < cap ? work : cap);
   return cudaSuccess;
+}
+
+// The same for the GEMM tile's THREADS and SMEM_BYTES.
+template <class Kernel>
+inline cudaError_t persistent_blocks(Kernel kernel, long long work,
+                                     unsigned* blocks) {
+  return persistent_blocks(kernel, THREADS, SMEM_BYTES, work, blocks);
 }
 
 inline bool aligned16(const void* p) {

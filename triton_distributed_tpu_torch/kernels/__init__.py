@@ -8,8 +8,11 @@ the TPU kernel it replaces and its launch count.
 
 from triton_distributed_tpu_torch.kernels import (  # noqa: F401
     allgather_gemm,
+    allreduce,
+    ep_all_to_all,
     gemm_reduce_scatter,
     moe_utils,
+    notify_wait,
     paged_attention,
     sp_attention,
 )

@@ -70,6 +70,18 @@ SIGNATURES = {
     "tdt_gemm_rs_loopback": [P, P, P, P, P, P, U32, I64, I64, I64, I64, P],
     # c, a, b, out, s (nullable f32 scalar), s value, M, N, K, stream
     "tdt_fused_step": [P, P, P, P, P, F32, I64, I64, I64, P],
+    # x, staging (null at world 1), out, flags, ticket, epoch, n, chunk
+    # elements, world, dtype, producer delay (ns), stream
+    "tdt_oneshot_ar_loopback": [P, P, P, P, P, U32, I64, I64, I64, I32, U64,
+                                P],
+    # sends, recvs (host arrays of device pointers), row bytes, piece rows
+    # (host int64 arrays), n_payloads, send_counts, count cells,
+    # recv_counts, flags, ticket, epoch, world, capacity, chunk rows, stream
+    "tdt_a2a_loopback": [P, P, P, P, I64, P, P, P, P, P, U32, I64, I64, I64,
+                         P],
+    # x, queue, out, signals, world, n_chunks, chunk bytes, odd ranks'
+    # producer delay (ns), stream
+    "tdt_notify_wait": [P, P, P, P, I64, I64, I64, U64, P],
 }
 
 

@@ -1,12 +1,14 @@
-"""Host side of ``csrc/signal.cuh``: flag buffers and epochs of the
-one-chip overlap kernels.
+"""Host side of ``csrc/language.cuh``'s signals: flag buffers with
+epochs, and counters zeroed on the stream.
 
 A flag buffer is a persistent zeroed ``uint32`` array per (stream, name),
 grown on demand and never reset: each call takes a new epoch (a per-device
 counter) and its producers raise flags to that epoch, so the flags of an
-earlier call read as "not yet" to a later one. Calls on one stream run in
-order, and calls on two streams use two buffers, so no call's flags are
-raised while another's are awaited.
+earlier call read as "not yet" to a later one. A counter buffer (cells that
+kernels ADD to, ``SIGNAL_ADD``) is zeroed on the stream right before each
+call's launch, so nothing an earlier call added can satisfy a wait of this
+one. Calls on one stream run in order, and calls on two streams use two
+buffers, so no call's signals are raised while another's are awaited.
 """
 
 from __future__ import annotations
@@ -14,17 +16,31 @@ from __future__ import annotations
 import torch
 
 _FLAGS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
+_COUNTERS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
 _EPOCH: dict[torch.device, int] = {}
+
+
+def _buffer(store: dict, device: torch.device, name: str,
+            n: int) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream, name)
+    buf = store.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        store[key] = buf
+    return buf
 
 
 def flags(device: torch.device, name: str, n: int) -> torch.Tensor:
     """At least ``n`` flags of ``name`` for the current stream of
     ``device`` (int32 storage that the kernels read as uint32)."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream, name)
-    buf = _FLAGS.get(key)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _FLAGS[key] = buf
+    return _buffer(_FLAGS, device, name, n)
+
+
+def counters(device: torch.device, name: str, n: int) -> torch.Tensor:
+    """``n`` counters of ``name`` for the current stream of ``device``,
+    zeroed on that stream now: the launch that follows starts from 0."""
+    buf = _buffer(_COUNTERS, device, name, n)[:n]
+    buf.zero_()
     return buf
 
 

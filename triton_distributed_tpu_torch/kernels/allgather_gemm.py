@@ -15,7 +15,7 @@ The one-chip overlap entry points (``ag_gemm_loopback`` :543,
 ``csrc/matmul_tail_into.cu`` and ``csrc/fused_step.cu``: in the loopback
 the first work items of one persistent kernel stage A chunk by chunk and
 raise a flag per chunk, and its consumer tiles wait on the flags
-(``csrc/signal.cuh``). Those kernels take bf16 operands; on the CPU each
+(``csrc/language.cuh``). Those kernels take bf16 operands; on the CPU each
 entry point runs the plain versions. Mosaic's VMEM arithmetic
 (``_split_blocks`` :151, ``_overlap_vmem``, ``_OVERLAP_VMEM_CAP``) does
 not carry over: the CUDA tiles are fixed at 128 x 128 and mask ragged

@@ -6,6 +6,10 @@ Counterpart of ``triton_distributed_tpu/layers/tp_attn.py`` (``TPAttn``):
                  flash attention -> GEMM-RS(out, w_o); at world 1 the
                  projections are the single-card matmul kernel and the
                  attention is the flash prefill / flash decode kernel.
+  ``ar_fwd``   - the all-reduce mode: ``torch.matmul`` projections (plain
+                 XLA in the JAX layer, :258-276), the same flash and paged
+                 attention kernels, then the one-shot all-reduce of the
+                 o_proj partial, the identity at world 1.
   ``xla_fwd``  - the golden: ``torch.matmul`` projections and the dense
                  attention (``use_flash_decode=False``).
 
@@ -16,8 +20,7 @@ contiguous cache (``Engine``) and the block-paged pool of the serving path
 (``block_tables`` given, attention through ``nn.paged_attn_with_cache``,
 whose fused kernel also serves the ``xla`` golden, as the JAX layer's
 does). Caches and pools are written in place (the JAX layer returns new
-arrays that XLA writes in place through donation). The all-reduce mode
-comes with a later slice.
+arrays that XLA writes in place through donation).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import dataclasses
 import torch
 
 from triton_distributed_tpu_torch.kernels.allgather_gemm import ag_gemm_device
+from triton_distributed_tpu_torch.kernels.allreduce import oneshot_all_reduce
 from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     gemm_rs_device,
 )
@@ -134,6 +138,19 @@ class TPAttn:
                                 **attn_kw)
         return gemm_rs_device(out.reshape(B * L, -1),
                               params["w_o"]).reshape(B, L, d)
+
+    def ar_fwd(self, params, x, k_cache, v_cache, offset, **attn_kw):
+        """x: (B, L, d) replicated -> replicated out, with ``dist_fwd``'s
+        cache writes and keywords: ``torch.matmul`` QKV, ``_qkv_to_attn``
+        (the flash and paged kernels), ``torch.matmul`` o_proj, then the
+        one-shot all-reduce of the partial."""
+        B, L, d = x.shape
+        qkv = torch.matmul(x.reshape(B * L, d),
+                           params["w_qkv"]).reshape(B, L, -1)
+        out = self._qkv_to_attn(params, qkv, k_cache, v_cache, offset,
+                                **attn_kw)
+        partial = torch.matmul(out.reshape(B * L, -1), params["w_o"])
+        return oneshot_all_reduce(partial).reshape(B, L, d)
 
     def xla_fwd(self, params, x, k_cache, v_cache, offset, **attn_kw):
         """Golden: ``torch.matmul`` projections and dense attention on the

@@ -8,6 +8,10 @@ dense and MoE Qwen3 configs. Modes:
              ``csrc/flash_prefill.cu``, each decode step's attention through
              ``csrc/flash_decode.cu``, an MoE FFN's expert GEMMs through
              ``csrc/grouped_gemm.cu``.
+  ``ar``   - the all-reduce mode (dense only): ``torch.matmul``
+             projections, the flash and paged attention kernels, and the
+             one-shot all-reduce of each block's partial, the identity at
+             world 1 (``kernels/allreduce.py``).
   ``xla``  - the golden the JAX package also keeps: ``torch.matmul``
              products and dense attention with f32 probabilities. An
              explicit mode, never a fallback.
@@ -16,8 +20,8 @@ PyTorch runs eagerly, so there is no step to compile; the KV cache is
 written in place where the JAX engine donates its buffers to a jitted step.
 ``make_paged_step`` builds the two fixed-shape serving steps that
 ``serving.BatchEngine`` calls (the JAX ``Engine._make_sm(paged=...)``).
-Not ported yet (see ROADMAP.md): ``mode="ar"``, ``serve_scanned`` (a CUDA
-graph of the decode loop), ``aot_cache`` and ``hf_path``.
+Not ported yet (see ROADMAP.md): ``serve_scanned`` (a CUDA graph of the
+decode loop), ``aot_cache`` and ``hf_path``.
 """
 
 from __future__ import annotations
@@ -26,11 +30,9 @@ import torch
 
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import KVCache
-from triton_distributed_tpu_torch.models.qwen import Qwen3
+from triton_distributed_tpu_torch.models.qwen import MODES, Qwen3, check_ar
 from triton_distributed_tpu_torch.models.sampling import sample_token
 from triton_distributed_tpu_torch.runtime.device import resolve_device
-
-MODES = ("dist", "xla")
 
 
 class Engine:
@@ -43,8 +45,8 @@ class Engine:
         layout (``Qwen3.init`` or ``params_from_jax``), moved to ``device``;
         without it the weights are random from ``seed``."""
         if mode not in MODES:
-            raise ValueError(f"unknown mode {mode!r}; ported modes: {MODES} "
-                             f"('ar' waits for the allreduce kernel)")
+            raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
+        check_ar(config, mode)
         self.config = config
         self.device = resolve_device(device)
         self.mode = mode

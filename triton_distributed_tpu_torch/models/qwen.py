@@ -73,6 +73,19 @@ def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
     return params
 
 
+MODES = ("dist", "xla", "ar")
+
+
+def check_ar(config: ModelConfig, mode: str) -> None:
+    """The all-reduce mode is dense only, as in the JAX stack (qwen.py
+    :340-344): raises its ``ValueError`` for an MoE config in ``mode="ar"``."""
+    if mode == "ar" and config.n_experts:
+        raise ValueError(
+            "mode='ar' is a dense-TP latency path (GEMM + fused "
+            "AllReduce); an MoE FFN's comm IS the expert dispatch — "
+            "use mode='dist' (a2a kernels) or 'xla'")
+
+
 @dataclasses.dataclass(frozen=True)
 class Qwen3:
     config: ModelConfig
@@ -175,18 +188,13 @@ class Qwen3:
         An MoE config routes every row of the step, padding rows included,
         as the JAX stack does (``hn.reshape(-1, d)``)."""
         c = self.config
-        if mode == "ar" and c.n_experts:
-            raise ValueError(
-                "mode='ar' is a dense-TP latency path (GEMM + all-reduce); an "
-                "MoE FFN's communication is the expert dispatch: use "
-                "mode='dist' or 'xla'")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
+        check_ar(c, mode)
         if return_moe_stats and (not c.n_experts or mode != "dist"):
             raise ValueError("return_moe_stats requires an MoE config in "
                              "mode='dist' (drops exist only on the dispatch "
                              "path)")
-        if mode not in ("dist", "xla"):
-            raise ValueError(f"unknown mode {mode!r} (ported: 'dist', 'xla'; "
-                             f"'ar' waits for the allreduce kernel)")
         if kv_scales is not None and block_tables is None:
             raise ValueError("kv_scales requires the paged cache layout "
                              "(block_tables)")
@@ -211,7 +219,8 @@ class Qwen3:
                 attn_kw["kv_scales"] = (kv_scales[0][i], kv_scales[1][i])
             resid = h
             hn = nn.rms_norm(h, lp["input_norm"][i], c.rms_eps)
-            fwd = attn.dist_fwd if mode == "dist" else attn.xla_fwd
+            fwd = {"dist": attn.dist_fwd, "xla": attn.xla_fwd,
+                   "ar": attn.ar_fwd}[mode]
             h = resid + fwd(la, hn, k_cache[i], v_cache[i], offset, **attn_kw)
             resid = h
             flat = nn.rms_norm(h, lp["post_norm"][i],
@@ -228,6 +237,8 @@ class Qwen3:
                              {k: stats[k] + layer[k] for k in stats})
             elif mode == "dist":
                 m = mlp.dist_fwd(lm, flat)
+            elif mode == "ar":
+                m = mlp.ar_fwd(lm, flat)
             else:
                 m = mlp.xla_fwd(lm, flat)
             h = resid + m.reshape(h.shape)

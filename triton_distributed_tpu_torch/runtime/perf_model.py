@@ -1,10 +1,17 @@
 """Speeds and feeds of the card, and the roofline matmul time.
 
 Counterpart of ``triton_distributed_tpu/runtime/perf_model.py``, the part
-the one-chip overlap path needs: ``Hardware``, ``detect_hardware``,
-``est_matmul`` (:330), ``hbm_gbps`` and ``peak_bf16_tflops``. The table
-holds published data-sheet numbers of the cards the port runs on. An
+the one-chip kernels need: ``Hardware``, ``detect_hardware``,
+``est_matmul`` (:330), ``hbm_gbps``, ``peak_bf16_tflops``, and the bytes
+that the collective loopbacks must move (the least, for their bounds). The
+table holds published data-sheet numbers of the cards the port runs on. An
 unknown card raises: there is no fallback row, and no TPU row at all.
+
+Every bound counts the function's own bytes: each input read once, each
+output written once. The staging slots, queues and signals through which a
+loopback simulates its link are scratch the caller never sees, so they are
+not counted: the bound is what any implementation of the same function
+must move, however it simulates the link.
 """
 
 from __future__ import annotations
@@ -83,3 +90,26 @@ def bound_seconds(flops: float, nbytes: float,
     t_ops = flops / hw.peak_bf16_flops
     t_bytes = nbytes / hw.hbm_bw
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def oneshot_ar_loopback_bytes(nbytes: int) -> int:
+    """Least bytes of the one-shot all-reduce loopback over an x of
+    ``nbytes``, at any world: x read once, the output (``world * x``)
+    written once."""
+    return 2 * nbytes
+
+
+def a2a_loopback_bytes(counts, capacity: int, row_bytes) -> int:
+    """Least bytes of the all-to-all loopback: every payload's rows below
+    each slot's count (at most ``capacity``, none for a count below 1) read
+    once and written once, plus the send counts read and the received
+    counts written. ``counts`` the per-slot counts (host ints),
+    ``row_bytes`` each payload's bytes per row."""
+    rows = sum(min(max(int(c), 0), capacity) for c in counts)
+    return 2 * rows * sum(row_bytes) + 2 * 4 * len(counts)
+
+
+def producer_consumer_bytes(nbytes: int) -> int:
+    """Least bytes of the notify/wait ring over an x of ``nbytes``: x read
+    once, the output (every rank's received stream) written once."""
+    return 2 * nbytes
