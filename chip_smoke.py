@@ -98,7 +98,24 @@ script exits non-zero without its result line:
    no-communication twin: matmul 2; the ``torch.matmul`` twin: none; the
    a2a arm: 1; the tutorial: 1), the times (kernel, plain, library call,
    bound; the a2a's pieces against one item per chunk) and bench.py's
-   decomposition.
+   decomposition;
+7. tensor-parallel Qwen3 at world 8 on one card (seeded; the ranks are
+   simulated, so the link is bypassed): the multi-rank AG-GEMM, GEMM-RS,
+   one-shot and two-shot all-reduce kernels against their plain versions
+   at bench.py's Qwen3-32B TP=8 shapes with all 8 ranks, at m = 1 and in
+   f32 (bf16 ``atol=rtol=2e-2``, f32 ``1e-4``; the all-reduces and the
+   GEMM-RS fold on exact products bit for bit, every staging slot holding
+   what was pushed, and again with 1 ms-delayed producers behind NaN
+   staging), AG-GEMM at the JAX 640-column split (``matmul_tail_into`` per
+   rank); their times (kernel, device alone, plain, library call, bound);
+   fp32 ``tiny`` at world 8 (dist and ar tokens == xla); then Qwen3-32B at
+   world 8, full width and depth, serving 8 prompts of 1,024 tokens and 32
+   new ones through ``Engine.serve`` in dist mode (exact counts: AG-GEMM
+   and GEMM-RS 2 x 64 per forward, flash prefill 64, flash decode 64 x 31)
+   and in ar mode (one-shot all-reduce 2 x 64 per forward), each one's
+   prefill logits held against the xla golden with phase 3's bars, TTFT,
+   decode tokens/s and the peak memory; and the host ``all_reduce`` at
+   bench.py's all-reduce shape (the perf model's pick: two-shot).
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -213,8 +230,24 @@ TUTORIAL_SHAPE, TUTORIAL_CHUNK = (8, 16, 128), 4
 LONG_RUN_SHAPE, LONG_RUN_CHUNK = (8, 256 * 64, 128), 64
 ODD_RANK_DELAY_NS = 50_000
 COLLECTIVE_KERNELS = ("oneshot_ar_loopback", "a2a_loopback", "notify_wait")
-# Phases 5 and 6's kernels: the serving paths launch none of them.
-NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS, 0)
+
+# Phase 7: tensor-parallel Qwen3 at world 8 on one card. The kernels at
+# bench.py's Qwen3-32B TP=8 shapes with all 8 ranks: AG-GEMM a (8, 512,
+# 5,120), b (8, 5,120, 3,200); GEMM-RS a (8, 4,096, 3,200), b (8, 3,200,
+# 5,120); the all-reduces at (8, 128, 5,120) bf16 (bench.py's M = 128 arm);
+# each also at m = 1 (two-shot: m = world, the least that splits) and at an
+# f32 size. The slice: Engine.serve of Qwen3-32B at full width and depth,
+# 8 prompts of 1,024 tokens + 32 new, max_length 1,056.
+TP_WORLD = 8
+TP_AG = (512, 5120, 3200)        # m, K, n_local per rank
+TP_RS = (4096, 3200, 5120)       # M, k_local, N per rank
+TP_AR = (128, 5120)
+TP_B, TP_L0, TP_GEN, TP_MAXLEN = 8, 1024, 32, 1056
+TP_KERNELS = ("ag_gemm", "gemm_rs", "oneshot_ar", "twoshot_ar")
+# Phases 5, 6 and 7's kernels: the world-1 serving paths launch none of
+# them.
+NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS,
+                           0)
 
 
 def say(*parts):
@@ -2128,6 +2161,358 @@ def phase_collectives(gen, kernels, card):
         say(f"phase 6: {key} = {v:.4f} [{card}]")
     return launches, err, rows
 
+# -- phase 7 -----------------------------------------------------------------
+
+def tp_exact(gen, world, M, k, N, dtype=torch.bfloat16):
+    """GEMM-RS operands whose products are exact in f32 (one small integer
+    per row of a, bf16 values in b): every partial is the same bits in any
+    summation order, so the fold can be held bit for bit."""
+    a = torch.zeros(world, M, k, device="cuda")
+    cols = torch.randint(0, k, (world, M, 1), generator=gen, device="cuda")
+    vals = torch.randint(1, 4, (world, M, 1), generator=gen, device="cuda")
+    a.scatter_(2, cols, vals.float())
+    return a.to(dtype), randn(gen, world, k, N).to(dtype)
+
+
+def tp_check_ag(tg, label, a, b, err, delayed=False):
+    """One AG-GEMM case against the plain version; the staging must hold
+    every rank's gathered A. ``delayed``: again with the producers held
+    back 1 ms behind NaN staging, bit-identical."""
+    world, m, K = a.shape
+    n = b.shape[2]
+    got, staged = tg.ag_gemm_cuda(a, b, cols=n)
+    want, want_staged = tg.ag_gemm_ref(a, b, cols=n)
+    e = check_close(f"phase 7: ag_gemm {label}", got, want, a.dtype)
+    if not torch.equal(staged, want_staged):
+        raise AssertionError(f"phase 7: ag_gemm {label}: staging != the "
+                             f"gathered A")
+    note = ""
+    if delayed:
+        poison = torch.full_like(staged, float("nan"))
+        slow, _ = tg.ag_gemm_cuda(a, b, cols=n, staging=poison,
+                                  producer_delay_ns=PRODUCER_DELAY_NS)
+        if not (torch.equal(slow, got) and torch.equal(poison, staged)):
+            raise AssertionError(f"phase 7: ag_gemm {label}: delayed "
+                                 f"producers changed the result or staging")
+        note = "; 1 ms-delayed producers behind NaN staging: bit-identical"
+    err["ag_gemm"] = max(err["ag_gemm"], e)
+    say(f"phase 7: ag_gemm {label} a {tuple(a.shape)} b {tuple(b.shape)} "
+        f"{str(a.dtype)[6:]}: max_abs_err {e:.4g}, staging == gathered A"
+        f"{note}")
+
+
+def tp_check_rs(trs, label, a, b, err, exact=False):
+    """One GEMM-RS case against the plain version. ``exact`` (exact
+    products): bit for bit, the staging holding every pushed partial, and
+    again with the product tiles held back 1 ms behind NaN staging."""
+    got, staging = trs.gemm_rs_cuda(a, b)
+    if exact:
+        want, want_staging = trs.gemm_rs_fold(trs.gemm_rs_partials(a, b),
+                                              a.dtype, return_staging=True)
+        poison = torch.full_like(staging, float("nan"))
+        slow, _ = trs.gemm_rs_cuda(a, b, staging=poison,
+                                   producer_delay_ns=PRODUCER_DELAY_NS)
+        if not (torch.equal(got, want) and torch.equal(staging, want_staging)
+                and torch.equal(slow, got) and torch.equal(poison, staging)):
+            raise AssertionError(f"phase 7: gemm_rs {label}: the fold or "
+                                 f"its staging is not the plain version's")
+        say(f"phase 7: gemm_rs {label} {tuple(a.shape)} x {tuple(b.shape)}: "
+            f"bit-identical fold and staging, also with 1 ms-delayed "
+            f"product tiles behind NaN staging")
+        return
+    e = check_close(f"phase 7: gemm_rs {label}", got, trs.gemm_rs_ref(a, b),
+                    a.dtype)
+    err["gemm_rs"] = max(err["gemm_rs"], e)
+    say(f"phase 7: gemm_rs {label} {tuple(a.shape)} x {tuple(b.shape)} "
+        f"{str(a.dtype)[6:]}: max_abs_err {e:.4g}")
+
+
+def tp_check_ar(tar, label, x, err):
+    """Both all-reduces bit for bit their plain versions, every rank's copy
+    equal, every staging slot what was pushed, and again with the
+    producers held back 1 ms behind NaN staging."""
+    world = x.shape[0]
+    runs = {"oneshot_ar": (tar.oneshot_all_reduce_cuda,
+                           tar.oneshot_all_reduce_ref(x))}
+    if x.shape[1] % world == 0:
+        runs["twoshot_ar"] = (tar.twoshot_all_reduce_cuda,
+                              tar.twoshot_all_reduce_ref(x))
+    pushed = torch.stack([torch.stack([x[s] for s in range(world) if s != d])
+                          for d in range(world)])
+    for name, (run, want) in runs.items():
+        got, staging = run(x)
+        if name == "twoshot_ar":
+            _, pushed = tar.twoshot_all_reduce_ref(x, return_staging=True)
+        poison = torch.full_like(staging, float("nan"))
+        slow, _ = run(x, staging=poison, producer_delay_ns=PRODUCER_DELAY_NS)
+        ok = (torch.equal(got, want) and torch.equal(staging, pushed)
+              and torch.equal(slow, got) and torch.equal(poison, staging)
+              and all(torch.equal(got[r], got[0]) for r in range(world)))
+        if not ok:
+            raise AssertionError(f"phase 7: {name} {label}: not the plain "
+                                 f"version's bits")
+        err[name] = max(err[name], 0.0)
+        say(f"phase 7: {name} {label} {tuple(x.shape)} {str(x.dtype)[6:]}: "
+            f"bit-identical to the plain version, every copy equal, staging "
+            f"== the pushes; 1 ms-delayed producers behind NaN staging: "
+            f"the same")
+
+
+def phase_tp_kernels(gen, kernels, card):
+    """Phase 7 (a): the four multi-rank kernels against their plain
+    versions at bench.py's shapes, m = 1 and f32; (c) their times. Returns
+    (max abs errors, times)."""
+    from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+    from triton_distributed_tpu_torch.kernels import allreduce as tar
+    from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    w, f32 = TP_WORLD, torch.float32
+    err = dict.fromkeys(TP_KERNELS, 0.0)
+    m, K, n = TP_AG
+    a = randn(gen, w, m, K)
+    b = randn(gen, w, K, n, scale=K ** -0.5)
+    tp_check_ag(tg, "bench", a, b, err, delayed=True)
+    tp_check_ag(tg, "m = 1", a[:, :1].contiguous(), b, err)
+    tp_check_ag(tg, "f32", randn(gen, w, 16, 1024, dtype=f32),
+                randn(gen, w, 1024, 1024, dtype=f32, scale=1024 ** -0.5),
+                err, delayed=True)
+    split = tg.AGGEMMConfig(overlap_cols=JAX_SPLIT_COLS)
+    kernels.reset_counts()
+    got = tg.ag_gemm_device(a, b, world=w, config=split)
+    tails = kernels.KERNELS["matmul_tail_into"].launches
+    e = check_close("phase 7: ag_gemm + tail", got,
+                    tg.ag_gemm_ref(a, b, cols=n)[0], torch.bfloat16)
+    if tails != w:
+        raise AssertionError(f"phase 7: the {JAX_SPLIT_COLS}-column split "
+                             f"ran matmul_tail_into {tails} times, not {w}")
+    say(f"phase 7: ag_gemm at the JAX split (overlap_cols "
+        f"{JAX_SPLIT_COLS}, the tail in matmul_tail_into per rank, {tails} "
+        f"launches): max_abs_err {e:.4g}")
+    del got
+
+    M, k, N = TP_RS
+    ar_, br_ = randn(gen, w, M, k), randn(gen, w, k, N, scale=k ** -0.5)
+    tp_check_rs(trs, "bench", ar_, br_, err)
+    tp_check_rs(trs, "m = 1", ar_[:, :w].contiguous(), br_, err)
+    tp_check_rs(trs, "f32", randn(gen, w, 256, 512, dtype=f32),
+                randn(gen, w, 512, 640, dtype=f32, scale=512 ** -0.5), err)
+    tp_check_rs(trs, "exact bf16", *tp_exact(gen, w, 1024, 256, 640), err,
+                exact=True)
+    tp_check_rs(trs, "exact f32", *tp_exact(gen, w, 64, 96, 200, f32), err,
+                exact=True)
+
+    x = randn(gen, w, *TP_AR)
+    tp_check_ar(tar, "bench", x, err)
+    tp_check_ar(tar, "m = 1 (two-shot: m = world)", x[:, :w].contiguous(),
+                err)
+    tp_check_ar(tar, "f32", randn(gen, w, 1000, 384, dtype=f32), err)
+    for shape in ((w, 8, 5120), (w, 128, 5120), (w, 1024, 5120)):
+        nb = math.prod(shape[1:]) * 2
+        say(f"phase 7: choose_all_reduce_method at {shape} bf16 "
+            f"({nb} B a rank): "
+            f"{tar.choose_all_reduce_method(w, nb, shape[1]).value} (one-shot "
+            f"{pm.est_oneshot_all_reduce(nb, w) * 1e6:.2f} us, two-shot "
+            f"{pm.est_twoshot_all_reduce(nb, w) * 1e6:.2f} us by the model: "
+            f"NVLink figures published, hop latency assumed)")
+
+    # (c) Times: kernel (CUDA events, L2 flushed), device alone
+    # (torch.profiler), plain, one library call where there is one, bound.
+    timer = Timer("cuda")
+    rows = {}
+    gathered = a.reshape(1, w * m, K)
+    t_k = timer(lambda: tg.ag_gemm_cuda(a, b, cols=n), reps=10)
+    t_d = kernel_device_ms(lambda: tg.ag_gemm_cuda(a, b, cols=n),
+                           "ag_gemm_kernel", n=10)
+    t_p = timer(lambda: tg.ag_gemm_ref(a, b, cols=n), reps=3)
+    t_l = timer(lambda: torch.matmul(gathered, b), reps=10)
+    t_b, by = bound_ms(pm.ag_gemm_flops(w, m, K, n),
+                       pm.ag_gemm_bytes(w, m, K, n, 2))
+    rows["ag_gemm"] = dict(ms=t_k, device_ms=t_d, plain_ms=t_p,
+                           library_ms=t_l, bound_ms=t_b, bound_by=by)
+    t_k = timer(lambda: trs.gemm_rs_cuda(ar_, br_), reps=10)
+    t_d = kernel_device_ms(lambda: trs.gemm_rs_cuda(ar_, br_),
+                           "gemm_rs_kernel", n=10)
+    t_p = timer(lambda: trs.gemm_rs_ref(ar_, br_), reps=3)
+    t_l = timer(lambda: torch.matmul(ar_, br_).sum(0), reps=10)
+    t_b, by = bound_ms(pm.gemm_rs_flops(w, M, k, N),
+                       pm.gemm_rs_bytes(w, M, k, N, 2))
+    rows["gemm_rs"] = dict(ms=t_k, device_ms=t_d, plain_ms=t_p,
+                           library_ms=t_l, bound_ms=t_b, bound_by=by)
+    nb = x[0].numel() * x.element_size()
+    t_l = timer(lambda: x.float().sum(0), reps=50)
+    t_b, by = bound_ms(0, pm.all_reduce_bytes(w, nb))
+    for name, run, ref, kern in (
+            ("oneshot_ar", tar.oneshot_all_reduce_cuda,
+             tar.oneshot_all_reduce_ref, "oneshot_ar_kernel"),
+            ("twoshot_ar", tar.twoshot_all_reduce_cuda,
+             tar.twoshot_all_reduce_ref, "twoshot_ar_kernel")):
+        rows[name] = dict(
+            ms=timer(lambda: run(x), reps=50),
+            device_ms=kernel_device_ms(lambda: run(x), kern),
+            plain_ms=timer(lambda: ref(x), reps=10), library_ms=t_l,
+            bound_ms=t_b, bound_by=by)
+    for name, r in rows.items():
+        say(f"phase 7: {name} times: kernel {r['ms']:.4f} ms (device alone "
+            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); one card stands in for {w}: the link is "
+            f"bypassed [{card}]")
+    say("phase 7: library calls: ag_gemm torch.matmul of the gathered A "
+        "against b; gemm_rs torch.matmul(a, b).sum(0) (two calls); the "
+        "all-reduces x.float().sum(0)")
+    return err, rows
+
+
+def tp_small_engines(Engine, ModelConfig, kernels):
+    """Phase 7 (b): fp32 tiny at world 8, dist and ar tokens == xla."""
+    cfg = ModelConfig.from_name("tiny")
+    ids = torch.randint(0, cfg.vocab_size, (8, 8), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(5), dtype=torch.int32)
+    xla = Engine(cfg, mode="xla", device="cuda", seed=3, world=TP_WORLD)
+    want = xla.serve(ids, 6)
+    for mode, used in (("dist", ("ag_gemm", "gemm_rs")),
+                       ("ar", ("oneshot_ar",))):
+        eng = Engine(cfg, mode=mode, device="cuda", params=xla.params,
+                     world=TP_WORLD)
+        kernels.reset_counts()
+        got = eng.serve(ids, 6)
+        counts = {k: kernels.KERNELS[k].launches for k in TP_KERNELS}
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 7: tiny world 8 {mode} tokens "
+                                 f"{got.tolist()} != xla {want.tolist()}")
+        if min(counts[k] for k in used) == 0:
+            raise AssertionError(f"phase 7: tiny {mode}: launches {counts}")
+        say(f"phase 7: tiny fp32 world {TP_WORLD} B=8 L0=8 gen 6: {mode} == "
+            f"xla tokens, launches {counts}")
+
+
+def tp_serve(eng, ids, kernels, expected, label):
+    """One Engine.serve of the slice with the counts reset just before and
+    read just after; returns (tokens, serve seconds, launches)."""
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    tokens = eng.serve(ids, TP_GEN)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    say(f"phase 7: {label} serve B={TP_B} L0={TP_L0} gen={TP_GEN} launches "
+        f"{launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"phase 7: {label} launch counts {launches} != "
+                             f"{expected}")
+    if tokens.shape != (TP_B, TP_GEN) or not (
+            (tokens >= 0) & (tokens < eng.config.vocab_size)).all():
+        raise AssertionError(f"phase 7: {label} tokens out of range")
+    return tokens, t_serve, launches
+
+
+def tp_ttft(eng, ids):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(ids, eng.new_cache(TP_B))
+    torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0
+
+
+def phase_tp_slice(Engine, ModelConfig, kernels, card):
+    """Phase 7 (d): Qwen3-32B at world 8, full width and depth, through
+    Engine.serve in dist and in ar mode, each held against the xla golden;
+    then the host all_reduce at bench.py's shape (two-shot by the model).
+    Returns the path's launches."""
+    from triton_distributed_tpu_torch.kernels import allreduce as tar
+
+    cfg = ModelConfig.from_name("qwen3-32b")
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dist = Engine(cfg, mode="dist", device="cuda", seed=0, world=TP_WORLD,
+                  max_length=TP_MAXLEN)
+    torch.cuda.synchronize()
+    say(f"phase 7: qwen3-32b world {TP_WORLD} random init "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ids = torch.randint(0, cfg.vocab_size, (TP_B, TP_L0), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(7), dtype=torch.int32)
+    dist.serve(ids[:, :64], 2)  # warm-up: kernel library, allocator
+    base = {k: 0 for k in kernels.KERNELS}
+    flash = {"flash_prefill": L, "flash_decode": L * (TP_GEN - 1)}
+    forwards = TP_GEN
+    launches = {}
+    tokens, t_serve, got = tp_serve(dist, ids, kernels, {
+        **base, **flash, "ag_gemm": 2 * L * forwards,
+        "gemm_rs": 2 * L * forwards}, "dist")
+    launches.update(ag_gemm=got["ag_gemm"], gemm_rs=got["gemm_rs"])
+    logits, ttft = tp_ttft(dist, ids)
+    xla = Engine(cfg, mode="xla", device="cuda", params=dist.params,
+                 world=TP_WORLD, max_length=TP_MAXLEN)
+    x_logits, x_ttft = tp_ttft(xla, ids)
+    if not golden_bars("phase 7: dist prefill logits vs xla", logits,
+                       x_logits):
+        raise AssertionError("phase 7: dist prefill logits disagree with the "
+                             "xla golden")
+    del logits
+    x_tokens = xla.serve(ids, TP_GEN)
+    decode_s = max(t_serve - ttft, 1e-9)
+    say(f"phase 7: dist greedy tokens equal to xla's: "
+        f"{100 * (x_tokens == tokens).float().mean().item():.1f}% of "
+        f"{TP_B}x{TP_GEN}, first tokens "
+        f"{100 * (x_tokens[:, 0] == tokens[:, 0]).float().mean().item():.1f}%"
+        f" (information: bf16 sums in other orders flip near-ties)")
+    say(f"phase 7: dist TTFT {ttft * 1e3:.2f} ms (prefill of {TP_B}x{TP_L0} "
+        f"+ argmax; xla golden {x_ttft * 1e3:.2f} ms), serve {t_serve:.3f} "
+        f"s, decode {TP_B * (TP_GEN - 1) / decode_s:.1f} tokens/s ({TP_B} "
+        f"rows) [{card}]")
+
+    ar = Engine(cfg, mode="ar", device="cuda", params=dist.params,
+                world=TP_WORLD, max_length=TP_MAXLEN)
+    tokens, t_serve, got = tp_serve(ar, ids, kernels, {
+        **base, **flash, "oneshot_ar": 2 * L * forwards}, "ar")
+    launches["oneshot_ar"] = got["oneshot_ar"]
+    logits, ttft = tp_ttft(ar, ids)
+    if not golden_bars("phase 7: ar prefill logits vs xla", logits,
+                       x_logits):
+        raise AssertionError("phase 7: ar prefill logits disagree with the "
+                             "xla golden")
+    decode_s = max(t_serve - ttft, 1e-9)
+    say(f"phase 7: ar greedy tokens equal to xla's: "
+        f"{100 * (x_tokens == tokens).float().mean().item():.1f}% of "
+        f"{TP_B}x{TP_GEN} (information)")
+    say(f"phase 7: ar TTFT {ttft * 1e3:.2f} ms, serve {t_serve:.3f} s, "
+        f"decode {TP_B * (TP_GEN - 1) / decode_s:.1f} tokens/s ({TP_B} "
+        f"rows) [{card}]")
+    say(f"phase 7: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
+        f" GiB")
+    del dist, xla, ar, logits, x_logits
+    free_card()
+
+    # The host wrapper at bench.py's all-reduce shape: AUTO picks by the
+    # perf model (two-shot at this size with the H100's figures).
+    x = randn(torch.Generator(device="cuda").manual_seed(9), TP_WORLD,
+              *TP_AR)
+    method = tar.choose_all_reduce_method(
+        TP_WORLD, x[0].numel() * x.element_size(), x.shape[1])
+    kernels.reset_counts()
+    got = tar.all_reduce(x)
+    now = {k: v.launches for k, v in kernels.KERNELS.items() if v.launches}
+    want = {"twoshot_ar" if method is tar.AllReduceMethod.TWO_SHOT
+            else "oneshot_ar": 1}
+    if now != want or not torch.equal(got, tar.twoshot_all_reduce_ref(x)[0]
+                                      if "twoshot_ar" in want
+                                      else tar.oneshot_all_reduce_ref(x)[0]):
+        raise AssertionError(f"phase 7: all_reduce AUTO launches {now} != "
+                             f"{want}, or its sum is not the plain one")
+    launches["twoshot_ar"] = now.get("twoshot_ar", 0)
+    say(f"phase 7: all_reduce {tuple(x.shape)} bf16 AUTO -> "
+        f"{method.value}: launches {now}, bit-identical to the plain version")
+    if launches["twoshot_ar"] == 0:
+        raise AssertionError("phase 7: the path never launched twoshot_ar")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2208,6 +2593,14 @@ def main() -> int:
     launches.update(coll_launches)
     err.update(coll_err)
     times.update(coll_times)
+    del inputs, paged_inputs
+    free_card()
+    tp_err, tp_times = phase_tp_kernels(gen, kernels, card)
+    err.update(tp_err)
+    times.update(tp_times)
+    free_card()
+    tp_small_engines(Engine, ModelConfig, kernels)
+    launches.update(phase_tp_slice(Engine, ModelConfig, kernels, card))
 
     record = []
     for name, kern in kernels.KERNELS.items():

@@ -224,9 +224,13 @@ def test_world_one_identities_and_multi_rank_refusals():
     x = torch.randn(4, 8)
     assert tar.oneshot_all_reduce(x) is x
     assert tar.twoshot_all_reduce(x) is x
+    # World 2 runs now (row 14 is ported): every rank's copy of the sum.
+    stacked = torch.randn(2, 4, 8)
     for fn in (tar.oneshot_all_reduce, tar.twoshot_all_reduce):
-        with pytest.raises(NotImplementedError, match="row 14"):
-            fn(x, world=2)
+        got = fn(stacked, world=2)
+        assert got.shape == stacked.shape
+        torch.testing.assert_close(got[0], stacked.sum(0))
+        assert torch.equal(got[1], got[0])
     ctx = tea.AllToAllContext(capacity=8, hidden=4)
     pay, counts = torch.randn(1, 8, 4), torch.tensor([3], dtype=torch.int32)
     out, rc = tea.fast_all_to_all(pay, counts, ctx=ctx)

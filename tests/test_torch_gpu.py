@@ -579,3 +579,184 @@ def test_notify_wait_refuses_ranks_the_card_cannot_hold(cuda):
     x = torch.zeros(1 << 20, 1, 4, device=cuda)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         tnw.producer_consumer_cuda(x, chunk_rows=1)
+
+
+# -- the multi-rank kernels (world simulated ranks on one card) -----------
+
+def _exact_operands(gen, world, M, k, N, dtype, cuda):
+    """a with one nonzero per row (a small integer) and b bf16-valued: every
+    product is exact in f32, so every partial sum is the same bits in any
+    order and the kernels' folds can be held bit for bit."""
+    a = torch.zeros(world, M, k, device=cuda)
+    cols = torch.randint(0, k, (world, M), generator=gen, device=cuda)
+    vals = torch.randint(1, 4, (world, M), generator=gen, device=cuda)
+    a.scatter_(2, cols[..., None], vals[..., None].float())
+    b = _randn(gen, world, k, N, dtype=torch.bfloat16).float()
+    return a.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("world,m,K,n,dtype", [
+    (8, 1, 512, 384, torch.bfloat16),      # dist-mode decode: m = 1
+    (8, 64, 256, 320, torch.bfloat16),
+    (8, 16, 128, 200, torch.float32),
+    (8, 1, 96, 72, torch.float32),
+    (3, 40, 72, 130, torch.bfloat16),      # a world that is not 2^k
+    (3, 21, 33, 77, torch.float32)])       # ragged, unvectorised
+def test_ag_gemm_kernel_matches_plain(cuda, world, m, K, n, dtype):
+    """Every rank's product against the plain version (tolerance of the
+    dtype), and every rank's staging equal to the gathered A exactly."""
+    gen = torch.Generator(device=cuda).manual_seed(m * K)
+    a = _randn(gen, world, m, K, dtype=dtype)
+    b = _randn(gen, world, K, n, dtype=dtype) * K ** -0.5
+    _build.reset_counts()
+    got = tg.ag_gemm_device(a, b, world=world)
+    out1, staged = tg.ag_gemm_cuda(a, b, cols=n)
+    torch.cuda.synchronize()
+    assert tg.AG_GEMM.launches == 2 and tg.MATMUL.launches == 0
+    want, want_staged = tg.ag_gemm_ref(a, b, cols=n)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(out1, got)
+    assert torch.equal(staged, want_staged)
+
+
+def test_ag_gemm_column_split_runs_the_tail_per_rank(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    world, m, K, n = 4, 32, 256, 384
+    a = _randn(gen, world, m, K, dtype=torch.bfloat16)
+    b = _randn(gen, world, K, n, dtype=torch.bfloat16) * K ** -0.5
+    _build.reset_counts()
+    got = tg.ag_gemm_device(a, b, world=world, config=tg.AGGEMMConfig(
+        block_n=128, overlap_cols=128))
+    torch.cuda.synchronize()
+    assert tg.AG_GEMM.launches == 1 and tg.TAIL_INTO.launches == world
+    want = tg.matmul_ref(a.reshape(1, world * m, K).expand(world, -1, -1), b)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ag_gemm_waits_for_delayed_producers(cuda, dtype):
+    """Every producer held back 1 ms behind NaN staging: the tiles wait on
+    the flags of the rows they read, so the result is the undelayed one bit
+    for bit, and every staging slot then holds the pushed shard."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    world, m, K, n = 8, 48, 128, 256
+    a = _randn(gen, world, m, K, dtype=dtype)
+    b = _randn(gen, world, K, n, dtype=dtype)
+    want, _ = tg.ag_gemm_cuda(a, b, cols=n)
+    staging = torch.full((world, world, m, K), float("nan"), dtype=dtype,
+                         device=cuda)
+    got, _ = tg.ag_gemm_cuda(a, b, cols=n, staging=staging,
+                             producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(staging, a.expand(world, -1, -1, -1))
+
+
+@pytest.mark.parametrize("world,M,k,N,dtype", [
+    (8, 8, 512, 384, torch.bfloat16),      # dist-mode decode: m = 1
+    (8, 256, 128, 320, torch.bfloat16),
+    (8, 64, 96, 200, torch.float32),
+    (3, 60, 72, 130, torch.bfloat16),      # a world that is not 2^k
+    (3, 21, 33, 77, torch.float32)])       # ragged, unvectorised
+def test_gemm_rs_kernel_matches_plain(cuda, world, M, k, N, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(M * k)
+    a = _randn(gen, world, M, k, dtype=dtype)
+    b = _randn(gen, world, k, N, dtype=dtype) * k ** -0.5
+    _build.reset_counts()
+    got = trs.gemm_rs_device(a, b, world=world)
+    torch.cuda.synchronize()
+    assert trs.GEMM_RS.launches == 1 and tg.MATMUL.launches == 0
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, trs.gemm_rs_ref(a, b), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("delay_ns", [0, 1_000_000])
+def test_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns):
+    """Exact partials: the fold (remote partials rounded to the output
+    dtype, own f32, src = 0 .. world - 1) is the plain fold's bits, with the
+    product tiles held back 1 ms behind NaN staging or not, and every slot
+    holds the pushed partial."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    world, M, k, N = 8, 16 * 8, 64, 192
+    a, b = _exact_operands(gen, world, M, k, N, dtype, cuda)
+    staging = torch.full((world, world - 1, M // world, N), float("nan"),
+                         dtype=dtype, device=cuda)
+    got, _ = trs.gemm_rs_cuda(a, b, staging=staging,
+                              producer_delay_ns=delay_ns)
+    torch.cuda.synchronize()
+    want, want_staging = trs.gemm_rs_fold(
+        trs.gemm_rs_partials(a, b).cpu(), dtype, return_staging=True)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(staging.cpu(), want_staging)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 128, 5120), torch.bfloat16), ((8, 1, 5120), torch.bfloat16),
+    ((3, 1000, 384), torch.float32), ((8, 7, 33), torch.float32),
+    ((2, 5, 3), torch.bfloat16)])
+@pytest.mark.parametrize("method", ["one_shot", "two_shot"])
+def test_all_reduce_kernels_are_bit_identical(cuda, shape, dtype, method):
+    """Both all-reduces bit for bit their plain versions (pure adds in
+    JAX's fixed orders), every rank's copy equal, every staging slot what
+    was pushed; two-shot only where m splits into world chunks."""
+    world = shape[0]
+    if method == "two_shot" and shape[1] % world:
+        with pytest.raises(ValueError, match="divisible by world"):
+            tar.twoshot_all_reduce(torch.zeros(shape, device=cuda),
+                                   world=world)
+        return
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = _randn(gen, *shape, dtype=dtype)
+    _build.reset_counts()
+    if method == "one_shot":
+        got, staging = tar.oneshot_all_reduce_cuda(x)
+        want = tar.oneshot_all_reduce_ref(x)
+        want_staging = torch.stack([torch.stack(
+            [x[s] for s in range(world) if s != d]) for d in range(world)])
+        assert tar.ONESHOT_AR.launches == 1
+    else:
+        got, staging = tar.twoshot_all_reduce_cuda(x)
+        want, want_staging = tar.twoshot_all_reduce_ref(
+            x.cpu(), return_staging=True)
+        assert tar.TWOSHOT_AR.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+    assert all(torch.equal(got[r], got[0]) for r in range(world))
+    assert torch.equal(staging.cpu(), want_staging.cpu())
+
+
+@pytest.mark.parametrize("method", ["one_shot", "two_shot"])
+def test_all_reduce_kernels_wait_for_delayed_producers(cuda, method):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(gen, 8, 64, 384, dtype=torch.bfloat16)
+    run = (tar.oneshot_all_reduce_cuda if method == "one_shot"
+           else tar.twoshot_all_reduce_cuda)
+    want, want_staging = run(x)
+    staging = torch.full_like(want_staging, float("nan"))
+    got, _ = run(x, staging=staging, producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(staging, want_staging)
+
+
+def test_epoch_wrap_leaves_no_stale_flag(cuda):
+    """The epoch counter crosses its wrap (2**31 - 1 -> 1) between calls
+    whose producers are held back 1 ms behind NaN staging: the flags the
+    earlier calls raised near 2**31 are zeroed first, so no fold reads one
+    of them as raised: every result is 8 x and every slot holds x."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    x = _randn(torch.Generator(device=cuda).manual_seed(4), 64, 384,
+               dtype=torch.bfloat16)
+    _signal._EPOCH[x.device] = 2 ** 31 - 2
+    for _ in range(4):
+        staging = torch.full((7, 64, 384), float("nan"), dtype=x.dtype,
+                             device=cuda)
+        got = tar.oneshot_ar_loopback_cuda(x, world=8, staging=staging,
+                                           producer_delay_ns=1_000_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, 8 * x)
+        assert torch.equal(staging, x.expand_as(staging))
+    assert _signal._EPOCH[x.device] == 3   # 2**31 - 1, then 1, 2, 3

@@ -59,10 +59,18 @@ def test_world1_wrappers_and_multi_rank_refusal():
     ref = tg.matmul_ref(ta, tb)
     torch.testing.assert_close(tg.ag_gemm_device(ta, tb), ref)
     torch.testing.assert_close(gemm_rs_device(ta, tb), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # World 2 runs now (rows 12-13 are ported) on every rank's shards
+    # stacked; the world-1 (unstacked) operands are refused there.
+    with pytest.raises(ValueError, match="stacked"):
         tg.ag_gemm_device(ta, tb, world=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="stacked"):
         gemm_rs_device(ta, tb, world=2)
+    ag = tg.ag_gemm_device(ta.reshape(2, 32, 32), tb[None].expand(2, -1, -1),
+                           world=2)
+    torch.testing.assert_close(ag, ref.expand(2, -1, -1))
+    rs = gemm_rs_device(ta[None].expand(2, -1, -1), tb[None].expand(2, -1, -1),
+                        world=2)
+    torch.testing.assert_close(rs.reshape(64, 48), 2 * ref)
     with pytest.raises(ValueError, match="K mismatch"):
         tg.ag_gemm_device(ta, tb.T.contiguous())
 

@@ -1,8 +1,9 @@
 // One output tile of a row-major product C = A @ B (A (M, K), B (K, N),
 // C (M, N)), f32 accumulation, C in the inputs' dtype: the block-level body
-// shared by matmul.cu, grouped_gemm.cu and the one-chip overlap kernels
+// shared by matmul.cu, grouped_gemm.cu, the one-chip overlap kernels
 // (ag_gemm_loopback.cu, matmul_tail_into.cu, gemm_rs_loopback.cu,
-// fused_step.cu).
+// fused_step.cu) and, through product_tile (either dtype, an epilogue per
+// output), the multi-rank kernels (ag_gemm.cu, gemm_rs.cu).
 //
 // bf16: a BM x BN tile on the tensor cores with mma.sync m16n8k16 (f32
 //   accumulate), fragments loaded by ldmatrix (A) and ldmatrix.trans (B)
@@ -74,8 +75,13 @@ __device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* A,
     for (int i = tid; i < BM * BK; i += THREADS) {
       int r = i / BK, c = i % BK;
       int gr = m0 + r, gc = k0 + c;
-      sA[r * LDA + c] = (gr < m_load && gc < K) ? A[(size_t)gr * lda + gc]
-                                                : zero;
+      // Through L2 only, as cp.async.cg above: A may be staged by another
+      // block of the same launch (the multi-rank kernels).
+      sA[r * LDA + c] = (gr < m_load && gc < K)
+                            ? __ushort_as_bfloat16(__ldcg(
+                                  reinterpret_cast<const unsigned short*>(
+                                      A + (size_t)gr * lda + gc)))
+                            : zero;
     }
     for (int i = tid; i < BK * BN; i += THREADS) {
       int r = i / BN, c = i % BN;
@@ -232,11 +238,16 @@ __device__ __forceinline__ void bf16_tile(const bf16* __restrict__ A,
 // thread.
 constexpr int FT = 64, FK = 16, F_THREADS = 256;
 
-__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
-                                         const float* __restrict__ B,
-                                         float* __restrict__ C, int m_load,
-                                         int m_store, int N, int K, int m0,
-                                         int n0) {
+// The f32 tile's K loop at (m0, n0) over A (rows lda apart) and B (rows
+// ldb apart), every thread of the block (F_THREADS) calling it; f(row, col,
+// value) then receives this thread's 4 x 4 outputs (the caller masks rows
+// and columns).
+template <class F>
+__device__ __forceinline__ void f32_mainloop(const float* __restrict__ A,
+                                             int lda,
+                                             const float* __restrict__ B,
+                                             int ldb, int m_load, int N,
+                                             int K, int m0, int n0, F f) {
   __shared__ float sA[FK][FT + 4];  // transposed A tile: sA[k][m]
   __shared__ float sB[FK][FT + 4];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -245,11 +256,11 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
     for (int i = tid; i < FT * FK; i += F_THREADS) {
       int r = i / FK, c = i % FK;
       sA[c][r] = (m0 + r < m_load && k0 + c < K)
-                     ? A[(size_t)(m0 + r) * K + k0 + c]
+                     ? __ldcg(A + (size_t)(m0 + r) * lda + k0 + c)  // L2
                      : 0.f;
       int rb = i / FT, cb = i % FT;
       sB[rb][cb] = (k0 + rb < K && n0 + cb < N)
-                       ? B[(size_t)(k0 + rb) * N + n0 + cb]
+                       ? B[(size_t)(k0 + rb) * ldb + n0 + cb]
                        : 0.f;
     }
     __syncthreads();
@@ -270,14 +281,60 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gr = m0 + ty + 16 * i, gc = n0 + tx + 16 * j;
-      if (gr < m_store && gc < N) C[(size_t)gr * N + gc] = acc[i][j];
-    }
+    for (int j = 0; j < 4; ++j) f(m0 + ty + 16 * i, n0 + tx + 16 * j, acc[i][j]);
 }
 
-// --- persistent grids with ticketed work (ag_gemm_loopback.cu,
-// gemm_rs_loopback.cu, oneshot_ar_loopback.cu, a2a_loopback.cu) ---
+__device__ __forceinline__ void f32_tile(const float* __restrict__ A,
+                                         const float* __restrict__ B,
+                                         float* __restrict__ C, int m_load,
+                                         int m_store, int N, int K, int m0,
+                                         int n0) {
+  f32_mainloop(A, K, B, N, m_load, N, K, m0, n0,
+               [&](int gr, int gc, float v) {
+                 if (gr < m_store && gc < N) C[(size_t)gr * N + gc] = v;
+               });
+}
+
+// --- one tile of either dtype, for kernels templated on it (ag_gemm.cu,
+// gemm_rs.cu) ---
+
+template <typename T>
+struct TileOf;
+template <>
+struct TileOf<bf16> {  // mma.sync, dynamic shared memory
+  static constexpr int M = BM, N = BN, threads = THREADS, smem = SMEM_BYTES;
+};
+template <>
+struct TileOf<float> {  // SIMT, static shared memory
+  static constexpr int M = FT, N = FT, threads = F_THREADS, smem = 0;
+};
+
+// The tile at (m0, n0) of A @ B, A's rows lda apart and B's ldb apart (B
+// has N columns, A and B K columns and rows), f32 accumulation; f(row, col,
+// value) receives each of this thread's outputs, unmasked. VEC applies to
+// bf16 (load_stage); smem is TileOf<T>::smem bytes of dynamic shared
+// memory. Every thread of the block calls it.
+template <typename T, bool VEC, class F>
+__device__ __forceinline__ void product_tile(const T* __restrict__ A,
+                                             int lda,
+                                             const T* __restrict__ B, int ldb,
+                                             int m_load, int N, int K, int m0,
+                                             int n0, unsigned char* smem,
+                                             F f) {
+  if constexpr (sizeof(T) == 2) {
+    Acc acc;
+    bf16_mainloop<VEC>(A, lda, B, ldb, m_load, N, K, m0, n0, smem, acc);
+    for_each_pair(acc, m0, n0, [&](int gr, int gc, float x0, float x1) {
+      f(gr, gc, x0);
+      f(gr, gc + 1, x1);
+    });
+  } else {
+    f32_mainloop(A, lda, B, ldb, m_load, N, K, m0, n0, f);
+  }
+}
+
+// --- persistent grids with ticketed work (the loopbacks and the
+// multi-rank kernels) ---
 
 // The block's next work item: thread 0 takes a ticket from the counter and
 // every thread of the block gets it. Ends at a barrier, so thread 0 may

@@ -82,6 +82,22 @@ SIGNATURES = {
     # x, queue, out, signals, world, n_chunks, chunk bytes, odd ranks'
     # producer delay (ns), stream
     "tdt_notify_wait": [P, P, P, P, I64, I64, I64, U64, P],
+    # The multi-rank kernels over world simulated ranks on one card.
+    # a, staging, b, out, flags, ticket, epoch, world, m, K, n, cols, chunk
+    # rows, dtype, producer delay (ns), stream
+    "tdt_ag_gemm": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64, I64, I32,
+                    U64, P],
+    # a, b, out, staging, own (f32), flags, ticket, epoch, world, M, k, N,
+    # dtype, producer delay (ns), stream
+    "tdt_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I32, U64,
+                    P],
+    # x, staging, out, flags, ticket, epoch, world, n, chunk elements,
+    # dtype, producer delay (ns), stream
+    "tdt_oneshot_ar": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
+    # x, staging, out, reduce-scatter flags, allgather flags, ticket, epoch,
+    # world, chunk elements, piece elements, dtype, producer delay (ns),
+    # stream
+    "tdt_twoshot_ar": [P, P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
 }
 
 

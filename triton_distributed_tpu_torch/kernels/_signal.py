@@ -4,7 +4,8 @@ epochs, and counters zeroed on the stream.
 A flag buffer is a persistent zeroed ``uint32`` array per (stream, name),
 grown on demand and never reset: each call takes a new epoch (a per-device
 counter) and its producers raise flags to that epoch, so the flags of an
-earlier call read as "not yet" to a later one. A counter buffer (cells that
+earlier call read as "not yet" to a later one; when the counter wraps, the
+device's flag buffers are zeroed first (``next_epoch``). A counter buffer (cells that
 kernels ADD to, ``SIGNAL_ADD``) is zeroed on the stream right before each
 call's launch, so nothing an earlier call added can satisfy a wait of this
 one. Calls on one stream run in order, and calls on two streams use two
@@ -46,8 +47,23 @@ def counters(device: torch.device, name: str, n: int) -> torch.Tensor:
 
 def next_epoch(device: torch.device) -> int:
     """A new epoch in ``[1, 2**31)`` for one call on ``device``. The
-    kernels compare wrap-safely, so only its difference from the flags'
-    values matters."""
-    e = _EPOCH.get(device, 0) % (2 ** 31 - 1) + 1
+    kernels compare wrap-safely (``int32(flag - epoch) >= 0`` reads as
+    raised), so only its difference from the flags' values matters. When
+    the counter wraps from ``2**31 - 1`` back to 1, every flag buffer of
+    ``device`` is zeroed first, each on its own stream (after every call
+    that used it): a flag left at an old epoch near ``2**31`` would
+    otherwise read as already raised to the small new ones."""
+    e = _EPOCH.get(device, 0) + 1
+    if e >= 2 ** 31:
+        for (dev, stream, _), buf in _FLAGS.items():
+            if dev != device:
+                continue
+            if buf.is_cuda:
+                with torch.cuda.stream(torch.cuda.ExternalStream(
+                        stream, device=dev)):
+                    buf.zero_()
+            else:
+                buf.zero_()
+        e = 1
     _EPOCH[device] = e
     return e

@@ -21,7 +21,16 @@ entry point runs the plain versions. Mosaic's VMEM arithmetic
 not carry over: the CUDA tiles are fixed at 128 x 128 and mask ragged
 edges.
 
-The overlapped multi-rank kernel (world > 1) is not ported yet.
+At world > 1 the ranks are simulated on one card (``runtime/mesh.py``):
+``ag_gemm_device`` takes every rank's A shard and B shard stacked, a
+(world, m, K) and b (world, K, n_local), and returns every rank's product
+(world, world * m, n_local) on ``csrc/ag_gemm.cu`` (``_ag_gemm_kernel``
+:304): the shards gathered into each rank's staging, flagged chunk by
+chunk, and each rank's tiles waiting on the rows they read, in the rank's
+segment order. The columns past ``overlap_cols`` run in
+``matmul_tail_into`` over each rank's gathered A (:478-480). One card
+stands in for the group: the gather goes through device memory, not
+NVLink. The host wrapper ``ag_gemm`` (:979) takes JAX's global shapes.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import math
 import torch
 
 from triton_distributed_tpu_torch.kernels import _build, _signal
+from triton_distributed_tpu_torch.runtime.mesh import World
 
 MATMUL = _build.register(
     "matmul", "triton_distributed_tpu_torch/csrc/matmul.cu",
@@ -48,6 +58,9 @@ AG_LOOPBACK = _build.register(
     "ag_gemm_loopback",
     "triton_distributed_tpu_torch/csrc/ag_gemm_loopback.cu",
     "triton_distributed_tpu/kernels/allgather_gemm.py:484")
+AG_GEMM = _build.register(
+    "ag_gemm", "triton_distributed_tpu_torch/csrc/ag_gemm.cu",
+    "triton_distributed_tpu/kernels/allgather_gemm.py:304")
 
 # Output tile width of the CUDA GEMM tiles (csrc/gemm_tile.cuh BN).
 TILE_N = 128
@@ -108,17 +121,114 @@ def ag_gemm_single_chip(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def ag_gemm_device(a_local: torch.Tensor, b_local: torch.Tensor, *,
-                   world: int = 1) -> torch.Tensor:
-    """AG-GEMM ``(m, K) x (K, n_local) -> (world*m, n_local)``. Only world 1
-    is ported: it is ``ag_gemm_single_chip``."""
-    if world != 1:
-        raise NotImplementedError(
-            "ag_gemm_device at world > 1 (the overlapped allgather kernel) is "
-            "not ported yet: ROADMAP.md Queue 1 item 11 / Queue 2 row 12")
-    if a_local.shape[1] != b_local.shape[0]:
-        raise ValueError(f"K mismatch: A has {a_local.shape[1]}, B has "
-                         f"{b_local.shape[0]}")
-    return ag_gemm_single_chip(a_local, b_local)
+                   world: int = 1,
+                   config: "AGGEMMConfig | None" = None) -> torch.Tensor:
+    """AG-GEMM: the allgather of A overlapped into the matmul (JAX :368).
+
+    At world 1 ``(m, K) x (K, n_local) -> (m, n_local)``: the single-card
+    matmul, ``config`` unused (as in JAX). At world > 1 every rank's shards
+    stacked: a (world, m, K), b (world, K, n_local) -> (world, world * m,
+    n_local), rank d's product of the gathered A (rows in absolute rank
+    order) against b[d]. The kernel on CUDA tensors (f32 or bf16, one
+    dtype), the plain version on CPU ones; columns past ``overlap_cols``
+    (``_resolve_overlap_cols``) in ``matmul_tail_into`` per rank."""
+    if world == 1:
+        if a_local.shape[1] != b_local.shape[0]:
+            raise ValueError(f"K mismatch: A has {a_local.shape[1]}, B has "
+                             f"{b_local.shape[0]}")
+        return ag_gemm_single_chip(a_local, b_local)
+    if (a_local.dim() != 3 or b_local.dim() != 3
+            or a_local.shape[0] != world or b_local.shape[0] != world):
+        raise ValueError(f"ag_gemm_device at world {world} takes stacked "
+                         f"a (world, m, K) and b (world, K, n_local), got "
+                         f"{tuple(a_local.shape)} and {tuple(b_local.shape)}")
+    _, m, k = a_local.shape
+    _, k2, n = b_local.shape
+    if k != k2:
+        raise ValueError(f"K mismatch: A has {k}, B has {k2}")
+    config, _ = _split_blocks(config or AGGEMMConfig(), n)
+    config.n_tiles(n)  # divisibility check
+    cols = _resolve_overlap_cols(config, n)
+    if a_local.is_cuda:
+        out1, staged = ag_gemm_cuda(a_local, b_local, cols=cols)
+    else:
+        out1, staged = ag_gemm_ref(a_local, b_local, cols=cols)
+    if cols == n:
+        return out1
+    return torch.stack([
+        matmul_tail_into(out1[r], staged[r].reshape(world * m, k),
+                         b_local[r], cols) for r in range(world)])
+
+
+def ag_gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
+                cols: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the multi-rank kernel: ``(out1, staged)``, staged
+    (world, world, m, K) every rank's gathered A (``staged[d][src] =
+    a[src]``) and out1[d] = staged[d] @ b[d][:, :cols] in f32, cast to the
+    promoted dtype."""
+    world, m, k = a.shape
+    staged = a.reshape(1, world * m, k).expand(world, -1, -1)
+    out1 = matmul_ref(staged, b[:, :, :cols])
+    return out1, staged.reshape(world, world, m, k).clone()
+
+
+def ag_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, cols: int,
+                 staging: torch.Tensor | None = None,
+                 producer_delay_ns: int = 0
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/ag_gemm.cu`` on the current stream: a (world, m, K),
+    b (world, K, n), one dtype (f32 or bf16), contiguous. Returns ``(out1,
+    staging)``: out1 (world, world m, cols), staging (world, world, m, K)
+    every rank's gathered A. ``staging`` (default: a new buffer) and
+    ``producer_delay_ns`` (every producer item sleeps that long before its
+    copy) let a test poison the buffer and hold the gather back."""
+    if not (a.is_cuda and b.is_cuda) or a.device != b.device:
+        raise ValueError("ag_gemm_cuda takes two tensors on one CUDA device")
+    if a.dtype != b.dtype:
+        raise TypeError(f"ag_gemm operands differ in dtype: {a.dtype} vs "
+                        f"{b.dtype}")
+    code = _build.dtype_code(a)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("ag_gemm_cuda takes row-major contiguous operands")
+    world, m, k = a.shape
+    n = b.shape[2]
+    if world < 2 or tuple(b.shape[:2]) != (world, k) or not 0 < cols <= n:
+        raise ValueError(f"ag_gemm_cuda shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}, cols {cols}")
+    shape = (world, world, m, k)
+    if staging is None:
+        staging = torch.empty(shape, dtype=a.dtype, device=a.device)
+    elif (tuple(staging.shape) != shape or staging.dtype != a.dtype
+          or staging.device != a.device or not staging.is_contiguous()):
+        raise ValueError(f"staging must be a contiguous {shape} {a.dtype} "
+                         f"tensor on {a.device}")
+    chunk_rows = min(m, STAGE_CHUNK_ROWS)
+    flags = _signal.flags(a.device, "ag_gemm",
+                          world * world * -(-m // chunk_rows))
+    ticket = torch.empty(1, dtype=torch.int32, device=a.device)
+    out = torch.empty((world, world * m, cols), dtype=a.dtype,
+                      device=a.device)
+    err = _build.lib().tdt_ag_gemm(
+        a.data_ptr(), staging.data_ptr(), b.data_ptr(), out.data_ptr(),
+        flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(a.device),
+        world, m, k, n, cols, chunk_rows, code, producer_delay_ns,
+        _build.stream_ptr(a))
+    _build.check(err, "tdt_ag_gemm")
+    AG_GEMM.launches += 1
+    return out, staging
+
+
+def ag_gemm(a: torch.Tensor, b: torch.Tensor, *, world: int,
+            config: "AGGEMMConfig | None" = None) -> torch.Tensor:
+    """Standalone AG-GEMM over ``world`` simulated ranks (JAX :979): a
+    global (M, K) sharded on M, b global (K, N) sharded on N; returns the
+    global (M, N) = a @ b, sharded on N."""
+    w = World(world)
+    if world == 1:
+        return ag_gemm_device(a, b)
+    out = ag_gemm_device(w.split(a, 0), w.split(b, 1), world=world,
+                         config=config)
+    return w.join(out, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +238,8 @@ def ag_gemm_device(a_local: torch.Tensor, b_local: torch.Tensor, *,
 
 @dataclasses.dataclass(frozen=True)
 class AGGEMMConfig:
-    """Column split of the one-chip AG-GEMM (JAX ``AGGEMMConfig`` :57).
+    """Column split of AG-GEMM, the one-chip loopback and the multi-rank
+    kernel alike (JAX ``AGGEMMConfig`` :57).
 
     ``block_n`` is the column granularity of the split: ``n`` and
     ``overlap_cols`` must be multiples of it. ``None`` resolves to the CUDA
@@ -162,8 +273,20 @@ def _auto_overlap_cols(n_local: int) -> int:
     (128 columns at M = 4,096 are 32 tiles on 132 SMs) and the tail cannot
     start before it ends. Measured at bench.py's shape on an H100 (PERF.md,
     ``chip_smoke.py`` phase 5's sweep): 3,200 columns 0.697 ms, 1,280 0.705,
-    640 0.719, 128 0.749."""
+    640 0.719, 128 0.749. The multi-rank kernel keeps the rule: its
+    consumer is the same tile grid, and on one card its gather is a copy
+    through device memory, as the loopback's is."""
     return n_local
+
+
+def _split_blocks(config: AGGEMMConfig, n: int
+                  ) -> tuple[AGGEMMConfig, int]:
+    """The overlap kernel's and the tail's column blocks (JAX :151). An
+    explicit ``block_n`` serves both, as in JAX; otherwise both are the
+    CUDA tile's width when it divides ``n``, else ``n``. Mosaic's VMEM
+    arithmetic, which made JAX's two differ, does not carry over."""
+    config = config.resolve(n)
+    return config, config.block_n
 
 
 def _resolve_overlap_cols(config: AGGEMMConfig, n: int) -> int:

@@ -1,15 +1,25 @@
-"""All-reduce at world 1, and the one-chip one-shot all-reduce loopback.
+"""All-reduce: one-shot and two-shot over simulated ranks, and the one-chip
+one-shot all-reduce loopback.
 
 Counterpart of ``triton_distributed_tpu/kernels/allreduce.py``. At world 1
 ``oneshot_all_reduce`` (:109) and ``twoshot_all_reduce`` (:253) are the
-identity (:115-116, :257-258), which is all ``mode="ar"`` needs on one
-card; the multi-rank kernels (``_oneshot_ar_kernel`` :74,
-``_twoshot_ar_kernel`` :209) are not ported yet. ``oneshot_ar_loopback``
-(:174) runs on ``csrc/oneshot_ar_loopback.cu``: world - 1 simulated peers
-push this card's buffer into staging slots, each chunk flagged when it
-lands, and a fixed-order f32 fold returns ``world * x``. It prices the
-all-reduce machinery beside the small-M GEMMs of the ar mode (``bench.py``'s
-M = 128 arm).
+identity (:115-116, :257-258). At world > 1 the ranks are simulated on one
+card: they take every rank's contribution stacked, ``(world, m, ...)``,
+and return every rank's copy of the sum, ``(world, m, ...)``, each copy the
+same bits, on ``csrc/oneshot_ar.cu`` (``_oneshot_ar_kernel`` :74: every
+rank pushes its buffer into a staging slot of every peer, then folds the
+world terms in rank order) and ``csrc/twoshot_ar.cu``
+(``_twoshot_ar_kernel`` :209: ring reduce-scatter, then ring allgather).
+The host wrapper ``all_reduce`` (:297) takes the stacked contributions and
+returns the reduced ``(m, ...)``, by the method ``choose_all_reduce_method``
+(:53) picks from the perf model. One card stands in for the group: the
+pushes go through device memory, not NVLink.
+
+``oneshot_ar_loopback`` (:174) runs on ``csrc/oneshot_ar_loopback.cu``:
+world - 1 simulated peers push this card's buffer into staging slots, each
+chunk flagged when it lands, and a fixed-order f32 fold returns ``world *
+x``. It prices the all-reduce machinery beside the small-M GEMMs of the ar
+mode (``bench.py``'s M = 128 arm).
 """
 
 from __future__ import annotations
@@ -40,28 +50,239 @@ class AllReduceMethod(enum.Enum):
     TWO_SHOT = "two_shot"
 
 
-def _multi_rank(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} at world > 1 (the multi-rank all-reduce kernels) is not "
-        f"ported yet: ROADMAP.md Queue 1 item 11 / Queue 2 row 14")
+ONESHOT_AR = _build.register(
+    "oneshot_ar", "triton_distributed_tpu_torch/csrc/oneshot_ar.cu",
+    "triton_distributed_tpu/kernels/allreduce.py:74")
+TWOSHOT_AR = _build.register(
+    "twoshot_ar", "triton_distributed_tpu_torch/csrc/twoshot_ar.cu",
+    "triton_distributed_tpu/kernels/allreduce.py:209")
+
+# At most this many chunks (flags) per rank in the multi-rank kernels: at
+# bench.py's (128, 5,120) bf16 a chunk is one 10 KB row; at an ar-mode
+# prefill of 8,192 rows a chunk grows to 8 rows.
+MAX_CHUNKS = 1024
+
+
+def choose_all_reduce_method(world: int, nbytes: int, leading_dim: int, *,
+                             hw=None) -> AllReduceMethod:
+    """The JAX rule (:53): one-shot at world <= 2 or when the leading dim
+    does not split into world chunks; otherwise the method the perf model
+    (``runtime/perf_model.py``, this card's figures unless ``hw`` is given)
+    estimates faster, one-shot on a tie."""
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    if world <= 2 or leading_dim % world:
+        return AllReduceMethod.ONE_SHOT
+    one = pm.est_oneshot_all_reduce(nbytes, world, hw)
+    two = pm.est_twoshot_all_reduce(nbytes, world, hw)
+    return AllReduceMethod.ONE_SHOT if one <= two else AllReduceMethod.TWO_SHOT
+
+
+def _stacked(name: str, x: torch.Tensor, world: int) -> None:
+    if x.dim() < 2 or x.shape[0] != world or x.shape[1] == 0:
+        raise ValueError(f"{name} at world {world} takes every rank's "
+                         f"contribution stacked, (world, m, ...), got "
+                         f"{tuple(x.shape)}")
+
+
+def _chunk(n: int, row: int, itemsize: int) -> int:
+    """Elements of one chunk: whole rows of CHUNK_BYTES or more, and no
+    more than MAX_CHUNKS chunks of ``n`` elements."""
+    rows = max(1, CHUNK_BYTES // (row * itemsize))
+    rows = max(rows, -(-(n // row) // MAX_CHUNKS))
+    return rows * row
+
+
+def oneshot_all_reduce_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of the multi-rank one-shot all-reduce, in the kernel's
+    order and rounding (``common.reduce_slots_tiled``): the f32 sum of the
+    world contributions ``x[0] + x[1] + ...`` in rank order, cast once;
+    every rank's copy is that sum."""
+    acc = x[0].float()
+    for src in range(1, x.shape[0]):
+        acc = acc + x[src].float()
+    return acc.to(x.dtype).expand(x.shape).clone()
+
+
+def oneshot_all_reduce_cuda(x: torch.Tensor, *, staging=None,
+                            producer_delay_ns: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/oneshot_ar.cu`` on the current stream: ``x`` (world,
+    m, ...) f32 or bf16, contiguous. Returns ``(out, staging)``, staging
+    (world, world - 1, m, ...) holding every pushed buffer
+    (``staging[d][peer_slot(src, d)] = x[src]``). ``staging`` (default: a
+    new buffer) and ``producer_delay_ns`` (every producer item sleeps that
+    long before its copy) let a test poison the slots and hold the pushes
+    back; the result must not change."""
+    world = x.shape[0]
+    _stacked("oneshot_all_reduce_cuda", x, world)
+    if world < 2 or not x.is_cuda:
+        raise ValueError("oneshot_all_reduce_cuda takes a CUDA tensor of "
+                         "world >= 2 contributions")
+    code = _build.dtype_code(x)
+    if not x.is_contiguous():
+        raise ValueError("oneshot_all_reduce_cuda takes a contiguous x")
+    shape = (world, world - 1, *x.shape[1:])
+    if staging is None:
+        staging = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (tuple(staging.shape) != shape or staging.dtype != x.dtype
+          or staging.device != x.device or not staging.is_contiguous()):
+        raise ValueError(f"staging must be a contiguous {shape} {x.dtype} "
+                         f"tensor on {x.device}")
+    n = x[0].numel()
+    chunk = _chunk(n, n // x.shape[1], x.element_size())
+    n_chunks = -(-n // chunk)
+    flags = _signal.flags(x.device, "oneshot_ar",
+                          world * (world - 1) * n_chunks)
+    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+    out = torch.empty_like(x)
+    err = _build.lib().tdt_oneshot_ar(
+        x.data_ptr(), staging.data_ptr(), out.data_ptr(), flags.data_ptr(),
+        ticket.data_ptr(), _signal.next_epoch(x.device), world, n, chunk,
+        code, producer_delay_ns, _build.stream_ptr(x))
+    _build.check(err, "tdt_oneshot_ar")
+    ONESHOT_AR.launches += 1
+    return out, staging
 
 
 def oneshot_all_reduce(x_local: torch.Tensor, *,
                        world: int = 1) -> torch.Tensor:
-    """Latency-optimal all-reduce of ``x_local`` (m, ...) over ``world``
-    ranks. At world 1 it is the identity (JAX :115)."""
+    """Latency-optimal all-reduce over ``world`` ranks (JAX :109). At world
+    1 ``x_local`` (m, ...) is returned as is (JAX :115). At world > 1
+    ``x_local`` is every rank's contribution stacked, (world, m, ...), and
+    the result every rank's copy of the sum, (world, m, ...): the kernel on
+    a CUDA tensor, the plain version on a CPU one."""
+    _check_world(world)
     if world == 1:
         return x_local
-    raise _multi_rank("oneshot_all_reduce")
+    _stacked("oneshot_all_reduce", x_local, world)
+    if x_local.is_cuda:
+        return oneshot_all_reduce_cuda(x_local)[0]
+    return oneshot_all_reduce_ref(x_local)
+
+
+def _twoshot_rows(x: torch.Tensor, world: int) -> int:
+    """Rows of one ring chunk; JAX's ``ValueError`` when the leading dim
+    does not split into ``world`` chunks (:259-262)."""
+    if x.shape[1] % world:
+        raise ValueError(
+            f"two-shot allreduce needs leading dim {x.shape[1]} divisible "
+            f"by world {world}; use one-shot or pad")
+    return x.shape[1] // world
+
+
+def twoshot_all_reduce_ref(x: torch.Tensor, *, return_staging: bool = False):
+    """Plain version of the multi-rank two-shot all-reduce, step by step in
+    the kernel's order and rounding: ring step s = 0 .. world - 2, rank r
+    adds its chunk c = (r - s - 1) mod world to what its left neighbour
+    pushed at step s - 1, in f32, rounds to x's dtype and pushes it right
+    (``common.reduce_rows_tiled``); rank r's own chunk is x[r][r] plus the
+    last push, rounded; the ring allgather copies each finished chunk to
+    every rank. ``return_staging`` also returns the (world, world - 1, m,
+    ...) pushes: ``staging[r][s]`` what rank r received at step s."""
+    world = x.shape[0]
+    m = _twoshot_rows(x, world)
+    chunks = x.reshape(world, world, m, *x.shape[2:])
+    staging = torch.empty((world, max(world - 1, 1), m, *x.shape[2:]),
+                          dtype=x.dtype, device=x.device)
+    for s in range(world - 1):
+        for r in range(world):
+            acc = chunks[r, (r - s - 1) % world].float()
+            if s > 0:
+                acc = acc + staging[r, s - 1].float()
+            staging[(r + 1) % world, s] = acc.to(x.dtype)
+    out = torch.empty_like(chunks[0])
+    for r in range(world):
+        out[r] = (chunks[r, r].float() + staging[r, world - 2].float()
+                  ).to(x.dtype)
+    out = out.reshape(x.shape[1:]).expand(x.shape).clone()
+    return (out, staging) if return_staging else out
+
+
+def twoshot_all_reduce_cuda(x: torch.Tensor, *, staging=None,
+                            producer_delay_ns: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/twoshot_ar.cu`` on the current stream: ``x`` (world,
+    M, ...) f32 or bf16, contiguous, M divisible by world. Returns ``(out,
+    staging)``, staging (world, world - 1, M / world, ...) the ring's
+    pushes as ``twoshot_all_reduce_ref`` gives them. ``staging`` and
+    ``producer_delay_ns`` (the ring's first pushes sleep that long) let a
+    test poison the slots and hold the ring back."""
+    world = x.shape[0]
+    _stacked("twoshot_all_reduce_cuda", x, world)
+    if world < 2 or not x.is_cuda:
+        raise ValueError("twoshot_all_reduce_cuda takes a CUDA tensor of "
+                         "world >= 2 contributions")
+    code = _build.dtype_code(x)
+    if not x.is_contiguous():
+        raise ValueError("twoshot_all_reduce_cuda takes a contiguous x")
+    m = _twoshot_rows(x, world)
+    shape = (world, world - 1, m, *x.shape[2:])
+    if staging is None:
+        staging = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (tuple(staging.shape) != shape or staging.dtype != x.dtype
+          or staging.device != x.device or not staging.is_contiguous()):
+        raise ValueError(f"staging must be a contiguous {shape} {x.dtype} "
+                         f"tensor on {x.device}")
+    cn = x[0].numel() // world
+    piece = _chunk(cn, cn // m, x.element_size())
+    n_pieces = -(-cn // piece)
+    rs_flags = _signal.flags(x.device, "twoshot_ar.rs",
+                             world * (world - 1) * n_pieces)
+    ag_flags = _signal.flags(x.device, "twoshot_ar.ag",
+                             world * world * n_pieces)
+    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+    out = torch.empty_like(x)
+    err = _build.lib().tdt_twoshot_ar(
+        x.data_ptr(), staging.data_ptr(), out.data_ptr(),
+        rs_flags.data_ptr(), ag_flags.data_ptr(), ticket.data_ptr(),
+        _signal.next_epoch(x.device), world, cn, piece, code,
+        producer_delay_ns, _build.stream_ptr(x))
+    _build.check(err, "tdt_twoshot_ar")
+    TWOSHOT_AR.launches += 1
+    return out, staging
 
 
 def twoshot_all_reduce(x_local: torch.Tensor, *,
                        world: int = 1) -> torch.Tensor:
-    """Bandwidth-optimal all-reduce (ring RS + ring AG). At world 1 it is
-    the identity (JAX :257)."""
+    """Bandwidth-optimal all-reduce (ring reduce-scatter + ring allgather,
+    JAX :253). At world 1 the identity (JAX :257); at world > 1 stacked in
+    and out as ``oneshot_all_reduce``, with m divisible by world (JAX's
+    ``ValueError`` otherwise)."""
+    _check_world(world)
     if world == 1:
         return x_local
-    raise _multi_rank("twoshot_all_reduce")
+    _stacked("twoshot_all_reduce", x_local, world)
+    _twoshot_rows(x_local, world)
+    if x_local.is_cuda:
+        return twoshot_all_reduce_cuda(x_local)[0]
+    return twoshot_all_reduce_ref(x_local)
+
+
+def all_reduce(x_stacked: torch.Tensor, *,
+               method: AllReduceMethod | str = AllReduceMethod.AUTO
+               ) -> torch.Tensor:
+    """Standalone all-reduce (JAX :297): ``x_stacked`` (world, m, ...),
+    rank r's contribution at index r; returns the reduced (m, ...). AUTO
+    asks ``choose_all_reduce_method`` with one rank's bytes and m, by the
+    figures of the card the tensor is on (a CPU tensor, which runs the
+    plain versions, by the H100 SXM's, the card the kernels are built
+    for)."""
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    world = x_stacked.shape[0]
+    if isinstance(method, str):
+        method = AllReduceMethod(method)
+    if method is AllReduceMethod.AUTO:
+        method = choose_all_reduce_method(
+            world, x_stacked[0].numel() * x_stacked.element_size(),
+            x_stacked.shape[1],
+            hw=None if x_stacked.is_cuda else pm.H100_SXM)
+    if world == 1:
+        return x_stacked[0]
+    run = (oneshot_all_reduce if method is AllReduceMethod.ONE_SHOT
+           else twoshot_all_reduce)
+    return run(x_stacked, world=world)[0]
 
 
 def _check_world(world: int) -> None:

@@ -16,6 +16,12 @@ dense and MoE Qwen3 configs. Modes:
              products and dense attention with f32 probabilities. An
              explicit mode, never a fallback.
 
+``world`` > 1 serves a dense config with that many tensor-parallel ranks
+simulated on one card (the JAX engine's ``mesh``): ``dist`` through the
+multi-rank AG-GEMM and GEMM-RS kernels, ``ar`` through the multi-rank
+one-shot all-reduce (``models/qwen.py``). ``make_paged_step`` (and so
+``BatchEngine``) stays at world 1 for now.
+
 PyTorch runs eagerly, so there is no step to compile; the KV cache is
 written in place where the JAX engine donates its buffers to a jitted step.
 ``make_paged_step`` builds the two fixed-shape serving steps that
@@ -30,7 +36,12 @@ import torch
 
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import KVCache
-from triton_distributed_tpu_torch.models.qwen import MODES, Qwen3, check_ar
+from triton_distributed_tpu_torch.models.qwen import (
+    MODES,
+    Qwen3,
+    check_ar,
+    check_world,
+)
 from triton_distributed_tpu_torch.models.sampling import sample_token
 from triton_distributed_tpu_torch.runtime.device import resolve_device
 
@@ -39,18 +50,22 @@ class Engine:
     def __init__(self, config: ModelConfig, *, mode: str = "dist",
                  device=None, params=None, seed: int = 0,
                  max_length: int | None = None, temperature: float = 0.0,
-                 top_p: float = 1.0):
+                 top_p: float = 1.0, world: int = 1):
         """``device`` defaults to the card (no card raises); pass "cpu" for
         the plain versions of the kernels. ``params`` is a dict in the JAX
-        layout (``Qwen3.init`` or ``params_from_jax``), moved to ``device``;
-        without it the weights are random from ``seed``."""
+        layout (``Qwen3.init`` or ``params_from_jax``, with the same
+        ``world``), moved to ``device``; without it the weights are random
+        from ``seed``. ``world`` simulated tensor-parallel ranks (dense
+        configs; an MoE config raises above 1)."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
         check_ar(config, mode)
+        check_world(config, world)
         self.config = config
         self.device = resolve_device(device)
         self.mode = mode
-        self.model = Qwen3(config)
+        self.world = world
+        self.model = Qwen3(config, world=world)
         self.temperature = temperature
         self.top_p = top_p
         self.max_length = max_length or config.max_length
@@ -79,7 +94,7 @@ class Engine:
 
     def new_cache(self, batch_size: int) -> KVCache:
         return KVCache.create(self.config, batch_size, device=self.device,
-                              max_length=self.max_length)
+                              max_length=self.max_length, world=self.world)
 
     def _step(self, ids: torch.Tensor, kv: KVCache):
         logits = self.model.forward(self.params, ids, kv.k, kv.v, kv.offset,
@@ -104,6 +119,11 @@ class Engine:
         data: slot churn changes values, never a shape."""
         if paged not in ("decode", "prefill"):
             raise ValueError(f"unknown paged variant {paged!r}")
+        if self.world > 1:
+            raise NotImplementedError(
+                "the block-paged serving step at world > 1 (BatchEngine over "
+                "simulated ranks) is not ported yet: ROADMAP.md Queue 1 "
+                "item 3")
         model, mode = self.model, self.mode
 
         @torch.inference_mode()

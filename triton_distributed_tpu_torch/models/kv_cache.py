@@ -8,6 +8,11 @@ Where the JAX cache is a functional pytree that XLA updates in place through
 buffer donation, this one is mutable: the layers write the new keys and
 values into ``k``/``v`` in place (``layers.nn.cache_update``) and the
 engine advances ``offset``, a plain Python int.
+
+For a world of simulated ranks on one card the cache keeps the global
+layout: rank r owns kv heads ``[r Hkv / world, (r + 1) Hkv / world)`` of
+index 3, where the JAX ``KVCache.spec`` shards them; the heads must split
+evenly, as JAX's placement demands.
 """
 
 from __future__ import annotations
@@ -25,10 +30,17 @@ class KVCache:
 
     @classmethod
     def create(cls, config, batch_size: int, *, device: torch.device,
-               max_length: int | None = None) -> "KVCache":
+               max_length: int | None = None,
+               world: int = 1) -> "KVCache":
         shape = (config.n_layers, batch_size,
                  max_length or config.max_length,
                  config.n_kv_heads, config.head_dim)
+        if config.n_kv_heads % world:
+            raise ValueError(
+                f"the cache shards its kv heads over the ranks, so the "
+                f"global size of its dimension 3 should be divisible by "
+                f"{world}, but it is equal to {config.n_kv_heads} (full "
+                f"shape: {shape})")
         return cls(k=torch.zeros(shape, dtype=config.dtype, device=device),
                    v=torch.zeros(shape, dtype=config.dtype, device=device))
 

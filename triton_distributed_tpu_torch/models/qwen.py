@@ -1,4 +1,4 @@
-"""Qwen3 decoder stack (dense and MoE families) at world 1.
+"""Qwen3 decoder stack (dense and MoE families).
 
 Counterpart of ``triton_distributed_tpu/models/qwen.py`` (``Qwen3``). The
 parameters keep the JAX package's layout: a dict whose per-layer leaves are
@@ -13,6 +13,16 @@ frameworks can run the same weights.
 The JAX stack walks the layers with ``lax.scan``; here a Python loop walks
 them, and each layer writes its slice of the KV cache (or of the serving
 path's block pool) in place.
+
+At ``world`` > 1 (dense configs, ``Engine``) the tensor-parallel ranks are
+simulated on one card (``runtime/mesh.py``): every leaf JAX shards is held
+as its rank stack, the rank dimension right after the layer dimension
+(``w_qkv`` (L, world, d, q_l + 2 kv_l), ``w_o`` (L, world, q_l, d),
+``w_gate_up`` (L, world, d, 2 ff_l), ``w_down`` (L, world, ff_l, d)); what
+JAX replicates (embeddings, norms, ``lm_head``) is held once. The hidden
+state is (B, L, d) in every mode: in dist mode rank r's rows are the batch
+rows ``[r B / world, (r + 1) B / world)`` (JAX :327-334), so gathering the
+last positions across ranks in rank order is the identity.
 """
 
 from __future__ import annotations
@@ -27,16 +37,54 @@ from triton_distributed_tpu_torch.layers.tp_attn import TPAttn
 from triton_distributed_tpu_torch.layers.tp_mlp import TPMLP
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.runtime.device import resolve_device
+from triton_distributed_tpu_torch.runtime.mesh import World
+
+# The leaves JAX shards over the ranks, and the dimension (behind the layer
+# dimension) it shards: P(None, axis) for the column-parallel products,
+# P(axis, None) for the row-parallel ones.
+SHARDED = {("attn", "w_qkv"): 1, ("attn", "w_o"): 0,
+           ("mlp", "w_gate_up"): 1, ("mlp", "w_down"): 0}
 
 
-def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
+def check_world(config: ModelConfig, world: int) -> None:
+    """What runs at ``world`` > 1: dense configs whose heads split over
+    the ranks (JAX's ``TPAttn.sizes`` error otherwise)."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    if world > 1 and config.n_experts:
+        raise NotImplementedError(
+            "an MoE config at world > 1 needs the multi-rank expert "
+            "dispatch (fast_all_to_all, ROADMAP.md Queue 2 row 18), not "
+            "ported yet")
+    if world > 1:
+        Qwen3(config, world=world).attn.sizes(world)
+
+
+def shard_layers(params: dict, world: int) -> dict:
+    """The JAX-global parameter dict -> the rank-stacked one: each
+    ``SHARDED`` leaf (L, ...) becomes (L, world, ...); the rest is kept."""
+    if world == 1:
+        return params
+    w = World(world)
+    layers = {k: dict(v) if isinstance(v, dict) else v
+              for k, v in params["layers"].items()}
+    for (block, name), dim in SHARDED.items():
+        layers[block][name] = w.split(layers[block][name], dim + 1, at=1)
+    return {**params, "layers": layers}
+
+
+def params_from_jax(tree, config: ModelConfig, device=None, *,
+                    world: int = 1) -> dict:
     """The weight carrier: turn a JAX ``Qwen3.init``/``load_hf`` parameter
     tree (nested dicts of numpy arrays, or of anything ``numpy.asarray``
-    takes) into the port's parameter dict on ``device`` (default: the card;
-    pass "cpu" for the CPU). Matrices take ``config.dtype``; norms and the
-    MoE router stay f32."""
+    takes; global arrays, as ``numpy.asarray`` gathers them) into the
+    port's parameter dict on ``device`` (default: the card; pass "cpu" for
+    the CPU). Matrices take ``config.dtype``; norms and the MoE router stay
+    f32. At ``world`` > 1 the leaves JAX shards are split into their rank
+    stacks (``shard_layers``)."""
     import numpy as np
 
+    check_world(config, world)
     device = resolve_device(device)
 
     def conv(x, dtype):
@@ -70,7 +118,7 @@ def params_from_jax(tree, config: ModelConfig, device=None) -> dict:
     }
     if not config.tie_embeddings:
         params["lm_head"] = conv(tree["lm_head"], mat)
-    return params
+    return shard_layers(params, world)
 
 
 MODES = ("dist", "xla", "ar")
@@ -89,6 +137,7 @@ def check_ar(config: ModelConfig, mode: str) -> None:
 @dataclasses.dataclass(frozen=True)
 class Qwen3:
     config: ModelConfig
+    world: int = 1
 
     @property
     def attn(self) -> TPAttn:
@@ -96,7 +145,7 @@ class Qwen3:
         return TPAttn(d_model=c.d_model, n_heads=c.n_heads,
                       n_kv_heads=c.n_kv_heads, head_dim=c.head_dim,
                       rope_theta=c.rope_theta, rope_scaling=c.rope_scaling,
-                      qk_norm=c.qk_norm, rms_eps=c.rms_eps)
+                      qk_norm=c.qk_norm, rms_eps=c.rms_eps, world=self.world)
 
     @property
     def mlp(self) -> TPMLP | MoEMLP:
@@ -108,15 +157,18 @@ class Qwen3:
                           n_experts=c.n_experts, topk=c.n_experts_per_tok,
                           norm_topk_prob=c.norm_topk_prob, dtype=c.dtype,
                           capacity_factor=c.moe_capacity_factor)
-        return TPMLP(d_model=c.d_model, d_ff=c.d_ff)
+        return TPMLP(d_model=c.d_model, d_ff=c.d_ff, world=self.world)
 
     def init(self, seed: int, device) -> dict:
         """Random parameters made on ``device`` from ``seed`` with a
         ``torch.Generator`` (normal, scaled by fan_in ** -0.5, in the
         config's dtype; norms are ones), in the JAX layout. The draws differ
         from JAX's ``Qwen3.init``; tests carry JAX weights over with
-        ``params_from_jax`` instead."""
+        ``params_from_jax`` instead. At ``world`` > 1 the sharded leaves are
+        drawn straight into their rank stacks (no global copy is made: at
+        Qwen3-32B one would not fit beside the stacks)."""
         c = self.config
+        check_world(c, self.world)
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
         L, d, dh = c.n_layers, c.d_model, c.head_dim
@@ -129,6 +181,8 @@ class Qwen3:
         def ones(*shape):
             return torch.ones(shape, dtype=torch.float32, device=device)
 
+        if self.world > 1:
+            return self._init_stacked(randw, ones)
         w_qkv = TPAttn.pack_qkv(randw((L, d, c.n_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d))
@@ -152,6 +206,32 @@ class Qwen3:
                 "mlp": mlp if c.n_experts else {
                     "w_gate_up": w_gate_up,
                     "w_down": randw((L, c.d_ff, d), c.d_ff)},
+            },
+        }
+        if not c.tie_embeddings:
+            params["lm_head"] = randw((d, c.vocab_size), d)
+        return params
+
+    def _init_stacked(self, randw, ones) -> dict:
+        """``init`` at world > 1 (dense): the sharded leaves drawn in their
+        rank stacks, the replicated ones once."""
+        c, w = self.config, self.world
+        L, d, dh = c.n_layers, c.d_model, c.head_dim
+        qs, kvs = self.attn.sizes(w)
+        layer_attn = {"w_qkv": randw((L, w, d, qs + 2 * kvs), d),
+                      "w_o": randw((L, w, qs, d), c.n_heads * dh)}
+        if c.qk_norm:
+            layer_attn["q_norm"] = ones(L, dh)
+            layer_attn["k_norm"] = ones(L, dh)
+        params = {
+            "embed": randw((c.vocab_size, d), d),
+            "final_norm": ones(d),
+            "layers": {
+                "input_norm": ones(L, d),
+                "post_norm": ones(L, d),
+                "attn": layer_attn,
+                "mlp": {"w_gate_up": randw((L, w, d, 2 * c.d_ff // w), d),
+                        "w_down": randw((L, w, c.d_ff // w, d), c.d_ff)},
             },
         }
         if not c.tie_embeddings:
@@ -186,11 +266,26 @@ class Qwen3:
         device tensors summed over layers (the JAX :315-347).
 
         An MoE config routes every row of the step, padding rows included,
-        as the JAX stack does (``hn.reshape(-1, d)``)."""
+        as the JAX stack does (``hn.reshape(-1, d)``).
+
+        At ``world`` > 1 (dense, contiguous cache): the parameters in their
+        rank stacks, the cache in the global layout, and in dist and xla
+        mode B divisible by world (JAX's ``ValueError`` otherwise)."""
         c = self.config
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
         check_ar(c, mode)
+        if self.world > 1:
+            check_world(c, self.world)
+            B = ids.shape[0]
+            if mode in ("dist", "xla") and B % self.world:
+                raise ValueError(f"batch {B} not divisible by world "
+                                 f"{self.world} (required in {mode} mode)")
+            if block_tables is not None:
+                raise NotImplementedError(
+                    "the block-paged serving step at world > 1 (BatchEngine "
+                    "over simulated ranks) is not ported yet: ROADMAP.md "
+                    "Queue 1 item 3")
         if return_moe_stats and (not c.n_experts or mode != "dist"):
             raise ValueError("return_moe_stats requires an MoE config in "
                              "mode='dist' (drops exist only on the dispatch "

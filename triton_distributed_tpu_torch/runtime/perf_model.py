@@ -1,9 +1,13 @@
 """Speeds and feeds of the card, and the roofline matmul time.
 
 Counterpart of ``triton_distributed_tpu/runtime/perf_model.py``, the part
-the one-chip kernels need: ``Hardware``, ``detect_hardware``,
-``est_matmul`` (:330), ``hbm_gbps``, ``peak_bf16_tflops``, and the bytes
-that the collective loopbacks must move (the least, for their bounds). The
+the port's kernels need: ``Hardware``, ``detect_hardware``,
+``est_matmul`` (:330), ``hbm_gbps``, ``peak_bf16_tflops``, the all-reduce
+estimates that pick a method (``est_oneshot_all_reduce`` :204,
+``est_twoshot_all_reduce`` :214, ``wire_bytes_all_reduce`` :253, with the
+ring terms they build on), and the bytes and operations that the
+collective loopbacks and the multi-rank kernels must move or do (the
+least, for their bounds). The
 table holds published data-sheet numbers of the cards the port runs on. An
 unknown card raises: there is no fallback row, and no TPU row at all.
 
@@ -24,16 +28,27 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class Hardware:
     """Per-card peaks: dense tensor-core bf16 FLOP/s and device-memory
-    bytes/s."""
+    bytes/s; and the link between cards, for the collectives' estimates:
+    ``link_bw`` bytes/s per link and direction, ``links`` links per card,
+    ``hop_lat`` seconds per hop, ``ring_bisection`` whether pushes that
+    cross the middle of the group share a ring's two cut links (a torus
+    embedded as a ring) rather than a switch's full bisection."""
 
     name: str
     peak_bf16_flops: float
     hbm_bw: float
+    link_bw: float = 0.0
+    links: int = 1
+    hop_lat: float = 0.0
+    ring_bisection: bool = False
 
 
 # NVIDIA H100 SXM data sheet (700 W): 989 TFLOP/s dense bf16, 3.35 TB/s
-# HBM3.
-H100_SXM = Hardware("H100 SXM", 989e12, 3.35e12)
+# HBM3; NVLink 4 at 900 GB/s per card through the NVSwitch, all to all:
+# 450 GB/s each way (published spec, not measured: one card bypasses the
+# link). No per-hop latency is published; 1 us is assumed (not measured).
+H100_SXM = Hardware("H100 SXM", 989e12, 3.35e12, link_bw=450e9, links=1,
+                    hop_lat=1e-6)
 
 # torch.cuda.get_device_name spellings (lowercase prefixes) -> figures. The
 # SXM part reports itself as "NVIDIA H100 80GB HBM3"; the PCIe and NVL
@@ -113,3 +128,100 @@ def producer_consumer_bytes(nbytes: int) -> int:
     """Least bytes of the notify/wait ring over an x of ``nbytes``: x read
     once, the output (every rank's received stream) written once."""
     return 2 * nbytes
+
+
+# -- the all-reduce estimates (seconds; nbytes = one rank's buffer) --------
+
+
+def _push_bandwidth_term(nbytes: int, world: int, hw: Hardware) -> float:
+    """Bandwidth-limited time of world - 1 concurrent direct pushes per
+    card (JAX :124): the card's egress over its links, and, on a ring
+    embedding, the (world / 2)^2 shard copies that cross its two cut links
+    per direction."""
+    egress = (world - 1) * nbytes / (hw.link_bw * hw.links)
+    if not hw.ring_bisection:
+        return egress
+    bisection = (world / 2) ** 2 * nbytes / (2 * hw.link_bw)
+    return max(egress, bisection)
+
+
+def est_ring_all_gather(nbytes: int, world: int,
+                        hw: Hardware | None = None) -> float:
+    """Ring allgather of one ``nbytes`` shard (JAX :113): world - 1 hops of
+    one shard over one link."""
+    hw = hw or detect_hardware()
+    return (world - 1) * (nbytes / hw.link_bw + hw.hop_lat)
+
+
+def est_ring_reduce_scatter(nbytes: int, world: int,
+                            hw: Hardware | None = None) -> float:
+    """Ring reduce-scatter (JAX :180): world - 1 hops of one chunk
+    (nbytes / world) each, plus each hop's accumulate pass through device
+    memory."""
+    hw = hw or detect_hardware()
+    chunk = nbytes / world
+    per_hop = chunk / hw.link_bw + 3 * chunk / hw.hbm_bw + hw.hop_lat
+    return (world - 1) * per_hop
+
+
+def est_oneshot_all_reduce(nbytes: int, world: int,
+                           hw: Hardware | None = None) -> float:
+    """One-shot all-reduce (JAX :204): every rank pushes its whole buffer
+    to every peer, then folds world buffers locally."""
+    hw = hw or detect_hardware()
+    reduce_ = world * nbytes * 2 / hw.hbm_bw
+    return (_push_bandwidth_term(nbytes, world, hw) + hw.hop_lat
+            + reduce_ + 2 * hw.hop_lat)
+
+
+def est_twoshot_all_reduce(nbytes: int, world: int,
+                           hw: Hardware | None = None) -> float:
+    """Two-shot all-reduce (JAX :214): ring reduce-scatter + ring
+    allgather, 2 (world - 1) hops of nbytes / world each."""
+    hw = hw or detect_hardware()
+    return (est_ring_reduce_scatter(nbytes, world, hw)
+            + est_ring_all_gather(nbytes // max(world, 1), world, hw))
+
+
+def wire_bytes_all_reduce(nbytes: int, world: int,
+                          method: str = "one_shot") -> int:
+    """Bytes each rank sends in an all-reduce of ``nbytes`` (JAX :253):
+    one-shot pushes the whole buffer to every peer; two-shot's ring
+    reduce-scatter and allgather each move (world - 1) / world of it."""
+    if method in ("one_shot", "oneshot"):
+        return (world - 1) * nbytes
+    return 2 * (world - 1) * nbytes // world
+
+
+# -- the multi-rank kernels' own work (the whole world's, on one card) -----
+
+
+def ag_gemm_flops(world: int, m: int, k: int, n: int) -> int:
+    """Operations of AG-GEMM over ``world`` ranks of a (m, k), b (k, n):
+    every rank's (world m, k) x (k, n) product."""
+    return 2 * world * (world * m) * k * n
+
+
+def ag_gemm_bytes(world: int, m: int, k: int, n: int, itemsize: int) -> int:
+    """Least bytes of AG-GEMM: every rank's a and b read once, every rank's
+    (world m, n) output written once (the gather's staging is scratch)."""
+    return (world * m * k + world * k * n + world * world * m * n) * itemsize
+
+
+def gemm_rs_flops(world: int, M: int, k: int, n: int) -> int:
+    """Operations of GEMM-RS over ``world`` ranks of a (M, k), b (k, n)."""
+    return 2 * world * M * k * n
+
+
+def gemm_rs_bytes(world: int, M: int, k: int, n: int, itemsize: int) -> int:
+    """Least bytes of GEMM-RS: every rank's a and b read once, every rank's
+    (M / world, n) output written once (the pushed partials are
+    scratch)."""
+    return (world * M * k + world * k * n + M * n) * itemsize
+
+
+def all_reduce_bytes(world: int, nbytes: int) -> int:
+    """Least bytes of an all-reduce of one ``nbytes`` buffer per rank:
+    every rank's buffer read once and its copy of the sum written once
+    (staging and ring pushes are scratch)."""
+    return 2 * world * nbytes
