@@ -115,7 +115,26 @@ script exits non-zero without its result line:
    and in ar mode (one-shot all-reduce 2 x 64 per forward), each one's
    prefill logits held against the xla golden with phase 3's bars, TTFT,
    decode tokens/s and the peak memory; and the host ``all_reduce`` at
-   bench.py's all-reduce shape (the perf model's pick: two-shot).
+   bench.py's all-reduce shape (the perf model's pick: two-shot);
+8. expert-parallel Qwen3-30B-A3B at world 4 on one card (seeded; the ranks
+   simulated): the multi-rank EP all-to-all (``csrc/ep_a2a.cu``: bf16
+   tokens of 2,048 and int32 expert ids) against its plain version, bit
+   for bit below every count, at the world-4 prefill's shape (capacity
+   16,384 a rank pair) and the decode's (capacity 8) over full, partial
+   and zero counts, each also with every producer held back 1 ms behind
+   NaN-poisoned receive buffers (bit-identical, every row past a count
+   untouched); AG-GEMM and GEMM-RS at this slice's attention shapes
+   (qkv (4, 2,048, 2,048) x (4, 2,048, 1,280), o_proj (4, 8,192, 1,024) x
+   (4, 1,024, 2,048), both at m = 1 too); the exchange's times (kernel,
+   device alone, plain, the library's transpose copies, bound); fp32
+   ``tiny-moe`` at world 4 (dist tokens == xla); then Qwen3-30B-A3B at
+   world 4, full width and depth, 4 prompts of 2,048 tokens and 32 new
+   through ``Engine.serve`` in dist mode at the dropless factor 16 (no
+   drops; exact counts: ``ep_a2a`` and the grouped GEMM 2 x 48 per
+   forward, AG-GEMM and GEMM-RS 48 per forward, flash prefill 48, flash
+   decode 48 x 31), the prefill logits unchanged with every receive
+   buffer NaN-poisoned and held against the xla golden with phase 3c's
+   bars, TTFT, decode tokens/s, the peak memory and a device profile.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -244,10 +263,31 @@ TP_RS = (4096, 3200, 5120)       # M, k_local, N per rank
 TP_AR = (128, 5120)
 TP_B, TP_L0, TP_GEN, TP_MAXLEN = 8, 1024, 32, 1056
 TP_KERNELS = ("ag_gemm", "gemm_rs", "oneshot_ar", "twoshot_ar")
-# Phases 5, 6 and 7's kernels: the world-1 serving paths launch none of
-# them.
-NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS,
-                           0)
+
+# Phase 8: expert-parallel Qwen3-30B-A3B at world 4 on one card (its 4 kv
+# heads do not split over 8). A prefill of 4 x 2,048 tokens is 2,048 a
+# rank, 16,384 (token, expert) pairs: at the served factor (MOE_FACTOR)
+# the dispatch capacity per rank pair is all 16,384 of them
+# (MoEMLP._capacities) and a decode step's (one token a rank) is 8; the
+# expert grids are (4 x 32, 8,192) at prefill. The exchange carries bf16
+# tokens of 2,048 and int32 expert ids, dispatch and combine in each MoE
+# layer. The attention half reuses phase 7's kernels at new shapes: AG-GEMM
+# a (4, 2,048, 2,048) x b (4, 2,048, 1,280) (8 query heads and one kv head a
+# rank), GEMM-RS (4, 8,192, 1,024) x (4, 1,024, 2,048), both at m = 1 too.
+EP_WORLD = 4
+EP_PREFILL_CAP, EP_DECODE_CAP = 16384, 8
+EP_AG = (2048, 2048, 1280)      # m, K, n_local per rank
+EP_RS = (8192, 1024, 2048)      # M, k_local, N per rank
+EP_KERNELS = ("ep_a2a",)
+# Per (src, dst) rank pair of a prefill: full, zero and partial counts, a
+# row of the balanced router's 4,096 (16,384 pairs over 4 ranks).
+EP_COUNTS = [[16384, 0, 4099, 1], [4096, 4096, 4096, 4096],
+             [0, 0, 0, 16384], [7, 8, 9, 4095]]
+EP_BALANCED = [[4096] * 4] * 4
+EP_DECODE_COUNTS = [[8, 0, 1, 2], [2, 2, 2, 2], [0, 0, 0, 8], [1, 3, 5, 7]]
+# Phases 5-8's kernels: the world-1 serving paths launch none of them.
+NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS
+                           + EP_KERNELS, 0)
 
 
 def say(*parts):
@@ -1207,24 +1247,48 @@ def drift(got, want) -> tuple[float, float]:
     """(1 - min cosine, max |diff| / max |want|) of two logit sets."""
     got, want = got.float(), want.float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError("phase 3c: non-finite logits")
+        raise AssertionError("drift: non-finite logits")
     cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min()
     return (1.0 - cos.item(),
             ((got - want).abs().max() / want.abs().max()).item())
 
 
-def free_running_gate(logits, witness, golden) -> None:
+def free_running_gate(logits, witness, golden, phase="phase 3c") -> None:
     """The kernels' free-running prefill logits against the golden, held at
     ``MOE_DRIFT_MARGIN`` times the witness's drift, on both measures."""
     got, wit = drift(logits, golden), drift(witness, golden)
-    say(f"phase 3c: free-running prefill logits vs xla: kernels min cosine "
+    say(f"{phase}: free-running prefill logits vs xla: kernels min cosine "
         f"{1 - got[0]:.6f}, max |diff| {100 * got[1]:.3f}% of max |want|; "
         f"witness (dense attention, P in bf16) {1 - wit[0]:.6f}, "
         f"{100 * wit[1]:.3f}%; bar {MOE_DRIFT_MARGIN} x the witness's drift")
     if got[0] > MOE_DRIFT_MARGIN * wit[0] or got[1] > MOE_DRIFT_MARGIN * wit[1]:
-        raise AssertionError("phase 3c: free-running prefill logits drift "
+        raise AssertionError(f"{phase}: free-running prefill logits drift "
                              "further from the golden than the witness "
                              "allows")
+
+
+def moe_logit_gates(eng, xla, ids, logits, MoEMLP, nn, phase) -> None:
+    """Phase 3c's bars on the dist engine's prefill ``logits`` against the
+    xla golden on the same weights. Free-running, each path routing on its
+    own hidden states: the router is chaotic at depth with random weights,
+    so the bars are held against a witness's drift (the dist path with the
+    golden's dense attention, P rounded to bf16 as the flash-prefill kernel
+    rounds it). Then with the dist path's expert choices replayed in the
+    golden: cosine and max |diff| as phase 3."""
+    x_logits, _ = xla.prefill(ids, xla.new_cache(ids.shape[0]))
+    shipped = nn.flash_prefill
+    nn.flash_prefill = dense_attention
+    try:
+        w_logits, _ = eng.prefill(ids, eng.new_cache(ids.shape[0]))
+    finally:
+        nn.flash_prefill = shipped
+    free_running_gate(logits, w_logits, x_logits, phase)
+    del x_logits, w_logits
+    if not golden_bars(f"{phase}: prefill logits dist vs xla, the dist "
+                       f"path's expert choices replayed in the golden",
+                       *replayed_prefill_logits(eng, xla, ids, MoEMLP)):
+        raise AssertionError(f"{phase}: prefill logits disagree with the xla "
+                             f"golden")
 
 
 @torch.inference_mode()
@@ -1304,27 +1368,11 @@ def phase_moe_full_width(Engine, ModelConfig, kernels, MoEMLP, nn, tmu,
     ttft = time.perf_counter() - t0
     xla = Engine(cfg, mode="xla", device="cuda", params=eng.params,
                  max_length=L0 + MOE_GEN)
-    x_logits, _ = xla.prefill(ids, xla.new_cache(B))
-    # Free-running, each path routing on its own hidden states. The router
-    # is chaotic at depth with random weights, so the bars are held against
-    # a witness's drift: the dist path with the golden's dense attention,
-    # P rounded to bf16 as the flash-prefill kernel rounds it.
-    shipped = nn.flash_prefill
-    nn.flash_prefill = dense_attention
-    try:
-        w_logits, _ = eng.prefill(ids, eng.new_cache(B))
-    finally:
-        nn.flash_prefill = shipped
-    free_running_gate(logits, w_logits, x_logits)
+    moe_logit_gates(eng, xla, ids, logits, MoEMLP, nn, "phase 3c")
+    del logits
     say(f"phase 3c: tokens whose top-8 expert set differs between the two "
         f"free-running paths at layer 24: "
         f"{top8_sets_differ(eng, xla, ids, MoEMLP, 24)} of {B * L0}")
-    del x_logits, w_logits, logits
-    if not golden_bars("phase 3c: prefill logits dist vs xla, the dist "
-                       "path's expert choices replayed in the golden",
-                       *replayed_prefill_logits(eng, xla, ids, MoEMLP)):
-        raise AssertionError("phase 3c: prefill logits disagree with the xla "
-                             "golden")
     moe_block_check(eng, ids, MoEMLP)
     del xla
     decode_s = max(t_serve - ttft, 1e-9)
@@ -1884,22 +1932,29 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
     calls of fn, each after an L2 flush, from torch.profiler's kernel
     records: the card's share alone, without the host's launch path that
     CUDA events around a short call also catch. The mean is over the
-    launches the profiler recorded (it may miss a few of n)."""
+    launches the profiler recorded (it may miss a few of n). A session
+    that recorded none of them (seen once, late in a run of many sessions,
+    for a 7 us kernel) is run again, at most three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == torch.autograd.DeviceType.CUDA
-           and kernel in ev.key]
-    seen = sum(ev.count for ev in evs)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and kernel in ev.key]
+        seen = sum(ev.count for ev in evs)
+        if seen:
+            break
+        say(f"the profiler saw no launch of {kernel} in {n} calls "
+            f"(session {attempt + 1} of 3)")
     if not 0 < seen <= n:
         raise AssertionError(f"the profiler saw {seen} launches of {kernel} "
                              f"in {n} calls")
@@ -2174,7 +2229,7 @@ def tp_exact(gen, world, M, k, N, dtype=torch.bfloat16):
     return a.to(dtype), randn(gen, world, k, N).to(dtype)
 
 
-def tp_check_ag(tg, label, a, b, err, delayed=False):
+def tp_check_ag(tg, label, a, b, err, delayed=False, phase="phase 7"):
     """One AG-GEMM case against the plain version; the staging must hold
     every rank's gathered A. ``delayed``: again with the producers held
     back 1 ms behind NaN staging, bit-identical."""
@@ -2182,9 +2237,9 @@ def tp_check_ag(tg, label, a, b, err, delayed=False):
     n = b.shape[2]
     got, staged = tg.ag_gemm_cuda(a, b, cols=n)
     want, want_staged = tg.ag_gemm_ref(a, b, cols=n)
-    e = check_close(f"phase 7: ag_gemm {label}", got, want, a.dtype)
+    e = check_close(f"{phase}: ag_gemm {label}", got, want, a.dtype)
     if not torch.equal(staged, want_staged):
-        raise AssertionError(f"phase 7: ag_gemm {label}: staging != the "
+        raise AssertionError(f"{phase}: ag_gemm {label}: staging != the "
                              f"gathered A")
     note = ""
     if delayed:
@@ -2192,16 +2247,16 @@ def tp_check_ag(tg, label, a, b, err, delayed=False):
         slow, _ = tg.ag_gemm_cuda(a, b, cols=n, staging=poison,
                                   producer_delay_ns=PRODUCER_DELAY_NS)
         if not (torch.equal(slow, got) and torch.equal(poison, staged)):
-            raise AssertionError(f"phase 7: ag_gemm {label}: delayed "
+            raise AssertionError(f"{phase}: ag_gemm {label}: delayed "
                                  f"producers changed the result or staging")
         note = "; 1 ms-delayed producers behind NaN staging: bit-identical"
     err["ag_gemm"] = max(err["ag_gemm"], e)
-    say(f"phase 7: ag_gemm {label} a {tuple(a.shape)} b {tuple(b.shape)} "
+    say(f"{phase}: ag_gemm {label} a {tuple(a.shape)} b {tuple(b.shape)} "
         f"{str(a.dtype)[6:]}: max_abs_err {e:.4g}, staging == gathered A"
         f"{note}")
 
 
-def tp_check_rs(trs, label, a, b, err, exact=False):
+def tp_check_rs(trs, label, a, b, err, exact=False, phase="phase 7"):
     """One GEMM-RS case against the plain version. ``exact`` (exact
     products): bit for bit, the staging holding every pushed partial, and
     again with the product tiles held back 1 ms behind NaN staging."""
@@ -2220,10 +2275,10 @@ def tp_check_rs(trs, label, a, b, err, exact=False):
             f"bit-identical fold and staging, also with 1 ms-delayed "
             f"product tiles behind NaN staging")
         return
-    e = check_close(f"phase 7: gemm_rs {label}", got, trs.gemm_rs_ref(a, b),
+    e = check_close(f"{phase}: gemm_rs {label}", got, trs.gemm_rs_ref(a, b),
                     a.dtype)
     err["gemm_rs"] = max(err["gemm_rs"], e)
-    say(f"phase 7: gemm_rs {label} {tuple(a.shape)} x {tuple(b.shape)} "
+    say(f"{phase}: gemm_rs {label} {tuple(a.shape)} x {tuple(b.shape)} "
         f"{str(a.dtype)[6:]}: max_abs_err {e:.4g}")
 
 
@@ -2514,6 +2569,276 @@ def phase_tp_slice(Engine, ModelConfig, kernels, card):
     return launches
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def ep_stacks(gen, cap, counts):
+    """The exchange's payloads at Qwen3-30B-A3B's world-4 width: bf16
+    tokens (4, 4, cap, 2,048) and int32 expert ids (4, 4, cap, 1), every
+    row at or past its pair's count poisoned (NaN, -7); and the counts."""
+    w = EP_WORLD
+    toks = randn(gen, w, w, cap, MOE_D)
+    ids = torch.randint(0, MOE_E, (w, w, cap, 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    counts = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    past = (torch.arange(cap, device="cuda")[None, None]
+            >= counts.clamp(0, cap)[..., None])
+    toks[past] = float("nan")
+    ids[past] = -7
+    return (toks, ids), counts
+
+
+def ep_below_counts_equal(got, want, rcounts, cap) -> bool:
+    """Every payload's bytes below each received count equal."""
+    live = (torch.arange(cap, device="cuda")[None, None]
+            < rcounts.clamp(0, cap)[..., None])[..., None]
+    return all(torch.equal(
+        g.view(torch.uint8).reshape(*g.shape[:3], -1) * live,
+        w.view(torch.uint8).reshape(*w.shape[:3], -1) * live)
+        for g, w in zip(got, want))
+
+
+def ep_check(tea, label, pays, counts, cap, delayed=False):
+    """The kernel (no host read inside the call) against the plain version,
+    bit for bit below every count, the counts transposed. ``delayed``:
+    again with every producer held back 1 ms behind NaN-poisoned receive
+    buffers, which must give the same bits below the counts and keep the
+    poison past them (nothing past a count is written)."""
+    ctx = tea.AllToAllContext(capacity=cap, hidden=MOE_D)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, rc = tea.fast_all_to_all(pays, counts, ctx=ctx, world=EP_WORLD)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    want, wrc = tea.fast_all_to_all_ref(pays, counts, ctx=ctx,
+                                        world=EP_WORLD)
+    if not (torch.equal(rc, wrc) and torch.equal(rc, counts.T)
+            and ep_below_counts_equal(got, want, rc, cap)):
+        raise AssertionError(f"phase 8: ep_a2a {label}: rows below the "
+                             f"counts or the counts differ")
+    del want
+    note = ""
+    if delayed:
+        recv = tuple(torch.full_like(p.view(torch.uint8), 0xFF).view(p.dtype)
+                     for p in pays)
+        slow, src = tea.fast_all_to_all_cuda(
+            pays, counts, ctx=ctx, world=EP_WORLD, recv=recv,
+            producer_delay_ns=PRODUCER_DELAY_NS)
+        torch.cuda.synchronize()
+        past = ~(torch.arange(cap, device="cuda")[None, None]
+                 < rc.clamp(0, cap)[..., None])
+        if not (torch.equal(src, rc)
+                and ep_below_counts_equal(slow, got, rc, cap)
+                and torch.isnan(slow[0][past]).all()
+                and (slow[1].view(torch.uint8)[past] == 0xFF).all()):
+            raise AssertionError(f"phase 8: ep_a2a {label}: delayed "
+                                 f"producers changed the result, or a row "
+                                 f"past a count was written")
+        note = ("; 1 ms-delayed producers behind NaN receive buffers: "
+                "bit-identical, every row past a count untouched")
+    say(f"phase 8: ep_a2a {label} (4, 4, {cap}, {MOE_D}) bf16 + int32 ids, "
+        f"counts {counts.tolist() if cap <= 64 else 'full/partial/zero'}: "
+        f"bit-identical below every count, received counts transposed, no "
+        f"host read inside the call{note}")
+
+
+def phase_ep_kernels(gen, kernels, card):
+    """Phase 8 (a): the exchange against its plain version at the world-4
+    prefill and decode shapes, with delayed producers; phase 7's AG-GEMM
+    and GEMM-RS at this slice's shapes; (b) the exchange's times. Returns
+    (max abs errors, times)."""
+    from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
+    from triton_distributed_tpu_torch.kernels import ep_all_to_all as tea
+    from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    pays, counts = ep_stacks(gen, EP_PREFILL_CAP, EP_COUNTS)
+    ep_check(tea, "prefill", pays, counts, EP_PREFILL_CAP, delayed=True)
+    del pays
+    dpays, dcounts = ep_stacks(gen, EP_DECODE_CAP, EP_DECODE_COUNTS)
+    ep_check(tea, "decode", dpays, dcounts, EP_DECODE_CAP, delayed=True)
+
+    w, err = EP_WORLD, {"ag_gemm": 0.0, "gemm_rs": 0.0}
+    m, K, n = EP_AG
+    a, b = randn(gen, w, m, K), randn(gen, w, K, n, scale=K ** -0.5)
+    tp_check_ag(tg, "qkv", a, b, err, delayed=True, phase="phase 8")
+    tp_check_ag(tg, "qkv m = 1", a[:, :1].contiguous(), b, err,
+                phase="phase 8")
+    M, k, N = EP_RS
+    a, b = randn(gen, w, M, k), randn(gen, w, k, N, scale=k ** -0.5)
+    tp_check_rs(trs, "o_proj", a, b, err, phase="phase 8")
+    tp_check_rs(trs, "o_proj m = 1", a[:, :w].contiguous(), b, err,
+                phase="phase 8")
+    del a, b
+    say(f"phase 8: AG-GEMM at n_local {n}: overlap_cols "
+        f"{tg._resolve_overlap_cols(tg.AGGEMMConfig().resolve(n), n)} (no "
+        f"tail)")
+
+    # (b) Times at the prefill's balanced counts (and full capacity):
+    # kernel (CUDA events, L2 flushed), device alone (torch.profiler),
+    # plain, the library copy (transposes of the stacks and counts), bound.
+    timer = Timer("cuda")
+    ctx = tea.AllToAllContext(capacity=EP_PREFILL_CAP, hidden=MOE_D)
+    cap, rows = EP_PREFILL_CAP, {}
+    for label, cts in (("balanced", EP_BALANCED), ("full", [[cap] * w] * w)):
+        pays, counts = ep_stacks(gen, cap, cts)
+        run = (lambda: tea.fast_all_to_all_cuda(pays, counts, ctx=ctx,
+                                                world=w))
+        row_bytes = [p[0, 0, 0].numel() * p.element_size() for p in pays]
+        t_b, by = bound_ms(0, pm.ep_a2a_bytes(cts, cap, row_bytes))
+        rows[label] = dict(
+            ms=timer(run, reps=10),
+            device_ms=kernel_device_ms(run, "ep_a2a_kernel", n=10),
+            plain_ms=timer(lambda: tea.fast_all_to_all_ref(
+                pays, counts, ctx=ctx, world=w), reps=3),
+            library_ms=timer(lambda: (pays[0].transpose(0, 1).contiguous(),
+                                      pays[1].transpose(0, 1).contiguous(),
+                                      counts.T.contiguous()), reps=10),
+            bound_ms=t_b, bound_by=by)
+        r = rows[label]
+        say(f"phase 8: ep_a2a times at the prefill shape, {label} counts "
+            f"({sum(map(sum, cts))} rows): kernel {r['ms']:.4f} ms (device "
+            f"alone {r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms (transpose(0, 1) copies of "
+            f"both stacks and the counts: moves every row, not the live "
+            f"ones), bound {r['bound_ms']:.4f} ms ({r['bound_by']}); one "
+            f"card stands in for {w}: the link is bypassed [{card}]")
+        del pays
+    run = (lambda: tea.fast_all_to_all_cuda(dpays, dcounts,
+                                            ctx=tea.AllToAllContext(
+                                                capacity=EP_DECODE_CAP,
+                                                hidden=MOE_D), world=w))
+    say(f"phase 8: ep_a2a at the decode shape: kernel "
+        f"{timer(run, reps=50):.4f} ms, device alone "
+        f"{kernel_device_ms(run, 'ep_a2a_kernel'):.4f} ms [{card}]")
+    return err, {"ep_a2a": rows["balanced"]}
+
+
+def ep_small_engine(Engine, ModelConfig, kernels):
+    """Phase 8 (c): fp32 tiny-moe at world 4, dist tokens == xla."""
+    cfg = ModelConfig.from_name("tiny-moe", moe_capacity_factor=64.0)
+    ids = torch.randint(0, cfg.vocab_size, (8, 8), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(5), dtype=torch.int32)
+    xla = Engine(cfg, mode="xla", device="cuda", seed=3, world=EP_WORLD)
+    dist = Engine(cfg, mode="dist", device="cuda", params=xla.params,
+                  world=EP_WORLD)
+    want = xla.serve(ids, 6)
+    kernels.reset_counts()
+    got = dist.serve(ids, 6)
+    counts = {k: v.launches for k, v in kernels.KERNELS.items() if v.launches}
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 8: tiny-moe world 4 dist tokens "
+                             f"{got.tolist()} != xla {want.tolist()}")
+    if counts.get("ep_a2a") != 2 * cfg.n_layers * 6 or not counts.get(
+            "grouped_gemm"):
+        raise AssertionError(f"phase 8: tiny-moe dist launches {counts}")
+    say(f"phase 8: tiny-moe fp32 world {EP_WORLD} B=8 L0=8 gen 6: dist == "
+        f"xla tokens, launches {counts}")
+
+
+class PoisonedReceives:
+    """While active, every exchange receives into buffers filled with NaN
+    (0xFF bytes) instead of fresh ``torch.empty`` ones; launches stay the
+    wrapper's own."""
+
+    def __init__(self, tea):
+        self.tea, self.real = tea, tea.fast_all_to_all_cuda
+
+    def __enter__(self):
+        def poisoned(payloads, *args, **kw):
+            pays = payloads if isinstance(payloads, tuple) else (payloads,)
+            kw["recv"] = tuple(torch.full_like(p.view(torch.uint8), 0xFF)
+                               .view(p.dtype) for p in pays)
+            return self.real(payloads, *args, **kw)
+
+        self.tea.fast_all_to_all_cuda = poisoned
+        return self
+
+    def __exit__(self, *exc):
+        self.tea.fast_all_to_all_cuda = self.real
+
+
+def phase_ep_slice(Engine, ModelConfig, kernels, MoEMLP, nn, card):
+    """Phase 8 (d): Qwen3-30B-A3B at world 4, full width and depth, through
+    Engine.serve in dist mode: no drops at the served factor, exact launch
+    counts, the prefill logits held against the xla golden with phase 3c's
+    bars and unchanged with NaN-poisoned receive buffers, TTFT, decode
+    tokens/s, peak memory, and where the time goes. Returns the launches."""
+    from triton_distributed_tpu_torch.kernels import ep_all_to_all as tea
+
+    cfg = ModelConfig.from_name("qwen3-30b-a3b", moe_capacity_factor=MOE_FACTOR)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, mode="dist", device="cuda", seed=0, world=EP_WORLD,
+                 max_length=L0 + MOE_GEN)
+    torch.cuda.synchronize()
+    say(f"phase 8: qwen3-30b-a3b world {EP_WORLD} ({L} layers, "
+        f"{cfg.n_experts // EP_WORLD} experts and {cfg.n_heads // EP_WORLD}"
+        f"/{cfg.n_kv_heads // EP_WORLD} heads a rank) random init "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    ids = torch.randint(0, cfg.vocab_size, (B, L0), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(7), dtype=torch.int32)
+    drops = eng.moe_drop_stats(ids)
+    say(f"phase 8: moe_drop_stats of the prompt at moe_capacity_factor "
+        f"{MOE_FACTOR}: {drops} (summed over layers and ranks)")
+    if any(drops.values()):
+        raise AssertionError(f"phase 8: drops at the served factor: {drops}")
+    eng.serve(ids[:, :128], 2)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    tokens = eng.serve(ids, MOE_GEN)
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    expected = {k: 0 for k in kernels.KERNELS}
+    expected.update(ep_a2a=2 * L * MOE_GEN, grouped_gemm=2 * L * MOE_GEN,
+                    ag_gemm=L * MOE_GEN, gemm_rs=L * MOE_GEN,
+                    flash_prefill=L, flash_decode=L * (MOE_GEN - 1))
+    say(f"phase 8: serve B={B} L0={L0} gen={MOE_GEN} launches {launches} "
+        f"(expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"phase 8: launch counts {launches} != "
+                             f"{expected}")
+    if (tokens.shape != (B, MOE_GEN)
+            or not ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"phase 8: tokens {tokens.shape} out of range")
+
+    t0 = time.perf_counter()
+    logits, _ = eng.prefill(ids, eng.new_cache(B))
+    torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    with PoisonedReceives(tea):
+        poisoned, _ = eng.prefill(ids, eng.new_cache(B))
+    if not torch.equal(poisoned, logits):
+        raise AssertionError("phase 8: NaN in the receive buffers changed "
+                             "the prefill logits")
+    say("phase 8: prefill logits with every receive buffer NaN-poisoned: "
+        "bit-identical (nothing reads past a count)")
+    del poisoned
+    xla = Engine(cfg, mode="xla", device="cuda", params=eng.params,
+                 world=EP_WORLD, max_length=L0 + MOE_GEN)
+    moe_logit_gates(eng, xla, ids, logits, MoEMLP, nn, "phase 8")
+    del xla, logits
+    decode_s = max(t_serve - ttft, 1e-9)
+    say(f"phase 8: TTFT {ttft * 1e3:.2f} ms (prefill of {B}x{L0} + argmax), "
+        f"serve {t_serve:.3f} s, decode {B * (MOE_GEN - 1) / decode_s:.1f} "
+        f"tokens/s ({B} rows), peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB [{card}]")
+    decode_profile(eng, ids, phase="phase 8")
+    del eng
+    free_card()
+    return {"ep_a2a": launches["ep_a2a"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2601,6 +2926,16 @@ def main() -> int:
     free_card()
     tp_small_engines(Engine, ModelConfig, kernels)
     launches.update(phase_tp_slice(Engine, ModelConfig, kernels, card))
+    free_card()
+    ep_err, ep_times = phase_ep_kernels(gen, kernels, card)
+    for name, e in ep_err.items():
+        err[name] = max(err[name], e)
+    err["ep_a2a"] = 0.0  # bit-identical below every count
+    times.update(ep_times)
+    free_card()
+    ep_small_engine(Engine, ModelConfig, kernels)
+    launches.update(phase_ep_slice(Engine, ModelConfig, kernels, MoEMLP, nn,
+                                   card))
 
     record = []
     for name, kern in kernels.KERNELS.items():

@@ -238,7 +238,17 @@ def test_world_one_identities_and_multi_rank_refusals():
     (o1, o2), rc = tea.fast_all_to_all((pay, pay), counts, ctx=ctx,
                                        direction="combine")
     assert o1 is pay and o2 is pay and rc is counts
-    with pytest.raises(NotImplementedError, match="row 18"):
+    # World 2 runs now (row 18 is ported): on rank stacks, out[r][p] =
+    # in[p][r] below counts[p][r], the counts transposed.
+    pays = torch.randn(2, 2, 8, 4)
+    counts2 = torch.tensor([[3, 8], [0, 5]], dtype=torch.int32)
+    out, rc = tea.fast_all_to_all(pays, counts2, ctx=ctx, world=2)
+    assert torch.equal(rc, counts2.T)
+    for r in range(2):
+        for p in range(2):
+            n = int(rc[r, p])
+            assert torch.equal(out[r, p, :n], pays[p, r, :n])
+    with pytest.raises(ValueError, match="world=2"):
         tea.fast_all_to_all(pay, counts, ctx=ctx, world=2)
     with pytest.raises(ValueError) as want:
         jea.fast_all_to_all(None, None, ctx=None, direction="sideways")

@@ -760,3 +760,93 @@ def test_epoch_wrap_leaves_no_stale_flag(cuda):
         assert torch.equal(got, 8 * x)
         assert torch.equal(staging, x.expand_as(staging))
     assert _signal._EPOCH[x.device] == 3   # 2**31 - 1, then 1, 2, 3
+
+
+# -- the multi-rank EP all-to-all (world simulated ranks on one card) -------
+
+def _ep_payloads(gen, world, cap, kind, cuda):
+    """Stacked (world, world, cap, ...) payloads of a dispatch: bf16 tokens
+    of 2,048 (one 4 KB row a piece row: pieces of one chunk) with int32
+    expert ids; fp8 tokens of 7,168 (pieces cut a chunk) with f32 scales of
+    128 (pieces of whole chunks); f32 rows of 12 B (byte copies) with ids."""
+    shape = (world, world, cap)
+    ids = torch.randint(-1, 128, (*shape, 1), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    if kind == "bf16":
+        return (_randn(gen, *shape, 2048, dtype=torch.bfloat16), ids)
+    if kind == "fp8":
+        return (_randn(gen, *shape, 7168, dtype=torch.float32).to(
+            torch.float8_e4m3fn), _randn(gen, *shape, 128,
+                                         dtype=torch.float32))
+    return (_randn(gen, *shape, 3, dtype=torch.float32), ids)
+
+
+def _ep_counts(gen, world, cap, cuda):
+    """Per (src, dst): zero, one, a chunk edge, full, past capacity, below
+    zero, and random ones."""
+    c = torch.randint(0, cap + 1, (world, world), generator=gen, device=cuda,
+                      dtype=torch.int32)
+    edge = torch.tensor([0, 1, 8, cap, cap + 9, -3], dtype=torch.int32,
+                        device=cuda)[:world * world]
+    c.view(-1)[:edge.numel()] = edge
+    return c
+
+
+def _ep_same_below_counts(got, want, rcounts, cap):
+    live = (torch.arange(cap, device=rcounts.device)[None, None]
+            < rcounts.clamp(0, cap)[..., None])
+    for g, w in zip(got, want):
+        gb = g.contiguous().view(torch.uint8).reshape(*g.shape[:3], -1)
+        wb = w.contiguous().view(torch.uint8).reshape(*w.shape[:3], -1)
+        if not torch.equal(gb * live[..., None], wb * live[..., None]):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("world,cap,kind", [
+    (4, 64, "bf16"), (8, 32, "fp8"), (4, 40, "bytes"), (2, 8, "bf16")])
+def test_ep_a2a_kernel_matches_plain(cuda, world, cap, kind):
+    """Every rank's exchange in one launch, under set_sync_debug_mode
+    ("error") (no host read of the counts): rows below each count
+    byte-identical to the plain version's, the counts transposed."""
+    gen = torch.Generator(device=cuda).manual_seed(world * cap)
+    pays = _ep_payloads(gen, world, cap, kind, cuda)
+    counts = _ep_counts(gen, world, cap, cuda)
+    ctx = tea.AllToAllContext(capacity=cap, hidden=pays[0].shape[-1])
+    _build.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, rc = tea.fast_all_to_all(pays, counts, ctx=ctx, world=world)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert tea.EP_A2A.launches == 1
+    want, wrc = tea.fast_all_to_all_ref(pays, counts, ctx=ctx, world=world)
+    assert torch.equal(rc, wrc) and torch.equal(rc, counts.T)
+    assert _ep_same_below_counts(got, want, rc, cap)
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_ep_a2a_waits_for_delayed_producers(cuda, world):
+    """Every producer item held back 1 ms behind NaN-poisoned receive
+    buffers: the result below the counts is bit-identical to the undelayed
+    one, and the rows past each count are never written (still NaN)."""
+    cap = 32
+    gen = torch.Generator(device=cuda).manual_seed(world)
+    pays = _ep_payloads(gen, world, cap, "fp8", cuda)
+    counts = _ep_counts(gen, world, cap, cuda)
+    ctx = tea.AllToAllContext(capacity=cap, hidden=7168)
+    want, wrc = tea.fast_all_to_all_cuda(pays, counts, ctx=ctx, world=world)
+    recv = tuple(torch.full_like(p.view(torch.uint8), 0xFF).view(p.dtype)
+                 for p in pays)
+    got, rc = tea.fast_all_to_all_cuda(pays, counts, ctx=ctx, world=world,
+                                       direction="combine", recv=recv,
+                                       producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert got[0] is recv[0] and torch.equal(rc, wrc)
+    assert _ep_same_below_counts(got, want, rc, cap)
+    past = (torch.arange(cap, device=cuda)[None, None]
+            >= rc.clamp(0, cap)[..., None])
+    assert (got[0].view(torch.uint8)[past] == 0xFF).all()
+    assert torch.isnan(got[1][past]).all()

@@ -47,7 +47,8 @@ def test_scan_sees_the_whole_port():
     for mod in ("kernels/moe_utils", "layers/moe_mlp", "kernels/_signal",
                 "kernels/gemm_reduce_scatter", "runtime/perf_model",
                 "kernels/allreduce", "kernels/ep_all_to_all",
-                "kernels/notify_wait", "runtime/mesh"):
+                "kernels/notify_wait", "runtime/mesh",
+                "layers/ep_a2a_layer"):
         assert f"triton_distributed_tpu_torch/{mod}.py" in names
 
 

@@ -33,6 +33,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from triton_distributed_tpu.kernels import allgather_gemm as jag
 from triton_distributed_tpu.kernels import allreduce as jar
 from triton_distributed_tpu.kernels import gemm_reduce_scatter as jrs
+from triton_distributed_tpu.kernels import moe_utils as jmoe_utils
 from triton_distributed_tpu.layers.tp_attn import TPAttn as JaxAttn
 from triton_distributed_tpu.layers.tp_mlp import TPMLP as JaxMLP
 from triton_distributed_tpu.models import Engine as JaxEngine
@@ -517,9 +518,10 @@ def test_engine_world8_matches_the_jax_xla_engine(tiny8, mode):
 
 
 def test_world8_refusals_match_jax(tiny8, mesh8):
-    """JAX's errors for a batch that does not split (dist and xla mode) and
-    a cache whose kv heads do not; what is not ported at world > 1 raises:
-    an MoE config (row 18) and the paged serving step."""
+    """JAX's errors for a batch that does not split (dist and xla mode), a
+    cache whose kv heads do not and an MoE config whose experts do not (row
+    18 is ported: an MoE config whose experts split runs); what is not
+    ported at world > 1 raises: the paged serving step."""
     cfg = ModelConfig.from_name("tiny")
     params = params_from_jax(tiny8["tree"], cfg, device="cpu", world=W)
     jcfg = JaxConfig.from_name("tiny")
@@ -543,8 +545,14 @@ def test_world8_refusals_match_jax(tiny8, mesh8):
         KVCache.create(kv4, 8, device="cpu", world=W)
     tail = "divisible by 8, but it is equal to 4 (full shape: (2, 8, 32, 4, 8))"
     assert str(want.value).endswith(tail) and str(got.value).endswith(tail)
-    with pytest.raises(NotImplementedError, match="row 18"):
-        Engine(ModelConfig.from_name("tiny-moe"), device="cpu", world=W)
+    with pytest.raises(ValueError) as want:
+        jmoe_utils.route_to_ranks(jnp.zeros((1, 2), jnp.int32),
+                                  jnp.zeros((1, 2)), n_experts=12, world=W,
+                                  capacity=8)
+    with pytest.raises(ValueError) as got:
+        Engine(dataclasses.replace(ModelConfig.from_name("tiny-moe"),
+                                   n_experts=12), device="cpu", world=W)
+    assert str(got.value) == str(want.value)
     eng = Engine(cfg, device="cpu", params=params, world=W)
     with pytest.raises(NotImplementedError, match="world > 1"):
         BatchEngine(eng, n_slots=2, block_size=4)

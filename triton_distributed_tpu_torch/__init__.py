@@ -11,12 +11,15 @@ to find:
                           decode loop, and the two paged serving steps)
   serving/                BatchEngine (continuous batching), KVPool,
                           Scheduler, RadixPrefixCache
+  runtime/mesh.py         the simulated world: rank stacks of sharded
+                          arrays
   layers/                 nn ops (incl. KV quantization and the paged pool
-                          write/read), TPAttn, TPMLP, MoEMLP at world 1
+                          write/read), TPAttn, TPMLP, MoEMLP and
+                          EPAll2AllLayer (the expert-parallel exchange)
   kernels/                wrappers of the hand-written CUDA kernels in
-                          ``csrc/`` (matmul, flash prefill, flash decode,
-                          paged attention, grouped GEMM), each beside its
-                          plain PyTorch version; MoE routing
+                          ``csrc/`` (matmuls, attention, the grouped GEMM,
+                          the collectives and the multi-rank kernels), each
+                          beside its plain PyTorch version; MoE routing
                           (``moe_utils``)
   kernels/_build.py       nvcc -> one shared library with a C interface,
                           loaded with ctypes at first use

@@ -98,6 +98,12 @@ SIGNATURES = {
     # world, chunk elements, piece elements, dtype, producer delay (ns),
     # stream
     "tdt_twoshot_ar": [P, P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
+    # sends, recvs (host arrays of device pointers), row bytes, piece rows
+    # (host int64 arrays), n_payloads, send_counts, count cells,
+    # recv_counts, flags, ticket, epoch, world, capacity, chunk rows,
+    # producer delay (ns), stream
+    "tdt_ep_a2a": [P, P, P, P, I64, P, P, P, P, P, U32, I64, I64, I64, U64,
+                   P],
 }
 
 

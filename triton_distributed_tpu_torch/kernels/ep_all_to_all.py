@@ -1,15 +1,21 @@
-"""EP all-to-all at world 1, and the one-chip all-to-all loopback.
+"""EP all-to-all: the multi-rank exchange and the one-chip loopback.
 
 Counterpart of ``triton_distributed_tpu/kernels/ep_all_to_all.py``. Each
 rank owns a ``(world, capacity, ...)`` send layout per payload (slot p =
 the rows bound for rank p) and receives into the same layout (slot p = the
-rows from rank p), with a ``(world,)`` int32 count per slot. At world 1
-``fast_all_to_all`` (:186) is the identity plus the send counts
-(:207-211); the multi-rank ``_a2a_kernel`` (:102) is not ported yet.
-``a2a_loopback`` (:378) runs on ``csrc/a2a_loopback.cu``: the whole
-dispatch protocol (count cells, occupancy-predicated chunked pushes, the
-receiver's re-derived waits) with every peer simulated on this card. Its
-counts stay on the device: no wrapper reads them back.
+rows from rank p), with a ``(world,)`` int32 count per slot.
+
+``fast_all_to_all`` (:186) is the exchange. At world 1 it is the identity
+plus the send counts (:207-211). Above it the ranks are simulated on one
+card (``runtime/mesh.py``), so the per-rank layouts are held as their rank
+stack: each payload ``(world, world, capacity, ...)`` with rank r's send
+slot p at ``[r, p]``, the counts ``(world, world)``; the result follows
+the JAX host wrapper ``all_to_all`` (:293): ``out[r][p] = in[p][r]`` below
+``rcounts[r][p] = counts[p][r]``. A CUDA tensor runs ``csrc/ep_a2a.cu``
+(replaces ``_a2a_kernel`` :102) or raises, a CPU tensor the plain version
+``fast_all_to_all_ref``. ``a2a_loopback`` (:378) runs on
+``csrc/a2a_loopback.cu``: the dispatch protocol with every peer simulated
+on this card. No wrapper reads a count back to the host.
 """
 
 from __future__ import annotations
@@ -24,11 +30,15 @@ from triton_distributed_tpu_torch.kernels import _build, _signal
 A2A_LOOPBACK = _build.register(
     "a2a_loopback", "triton_distributed_tpu_torch/csrc/a2a_loopback.cu",
     "triton_distributed_tpu/kernels/ep_all_to_all.py:336")
+EP_A2A = _build.register(
+    "ep_a2a", "triton_distributed_tpu_torch/csrc/ep_a2a.cu",
+    "triton_distributed_tpu/kernels/ep_all_to_all.py:102")
 
-# Bytes of one payload piece, the kernel's unit of work inside a chunk: a
-# full-occupancy chunk of 128 fp8 tokens of 7,168 is 32 pieces of 4 rows.
+# Bytes of one payload piece, the kernels' unit of work: a full-occupancy
+# chunk of 128 fp8 tokens of 7,168 is 32 pieces of 4 rows; a chunk of 8
+# bf16 rows of 2,048 is one piece; 8,192 rows of 4-byte expert ids are one.
 PIECE_BYTES = 32768
-MAX_PAYLOADS = 4  # csrc/a2a_loopback.cu kMaxPayloads
+MAX_PAYLOADS = 4  # csrc/a2a_loopback.cu and csrc/ep_a2a.cu kMaxPayloads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +49,7 @@ class AllToAllContext:
     chunk_rows)`` chunks, not its whole capacity. The same fields and
     ``ValueError``s as JAX. JAX's ``_check_payload_alignment`` is not
     carried over: it is Mosaic's rule that a DMA slice along the token dim
-    needs a minor dim of a multiple of 128 lanes, and the CUDA kernel moves
+    needs a minor dim of a multiple of 128 lanes, and the CUDA kernels move
     bytes (16 at a time where the rows allow, else one by one)."""
 
     capacity: int
@@ -62,21 +72,154 @@ def _as_tuple(payloads):
     return single, ((payloads,) if single else tuple(payloads))
 
 
-def fast_all_to_all(payloads, send_counts, *, ctx: AllToAllContext,
-                    direction: str = "dispatch", world: int = 1):
-    """Per-rank EP exchange (JAX :186): ``payloads`` one tensor or a tuple,
-    each ``(world, capacity, ...)``; ``send_counts`` (world,) int32. Returns
-    ``(recv_payloads, recv_counts)`` in the same layout. At world 1 it is
-    the identity plus the send counts (JAX :207-211)."""
+def _check_direction(direction: str) -> None:
     if direction not in ("dispatch", "combine"):
         raise ValueError(f"direction must be 'dispatch' or 'combine', got "
                          f"{direction!r}")
-    single, payloads = _as_tuple(payloads)
+
+
+def fast_all_to_all(payloads, send_counts, *, ctx: AllToAllContext,
+                    direction: str = "dispatch", world: int = 1):
+    """The EP exchange (JAX :186). ``payloads`` one tensor or a tuple. At
+    world 1 each is one rank's ``(1, capacity, ...)`` and ``send_counts``
+    its (1,) counts: returned as they are. Above it each payload is the
+    rank stack ``(world, world, capacity, ...)`` (rank r's send slot p at
+    ``[r, p]``) and ``send_counts`` (world, world) int32; returns
+    ``(recv_payloads, recv_counts)`` with ``recv[r][p] = payload[p][r]``
+    below ``recv_counts[r][p] = send_counts[p][r]`` (received rows past a
+    count are unspecified). ``direction`` "dispatch" or "combine" keeps the
+    two directions' signals apart, as JAX keeps their collective ids."""
+    _check_direction(direction)
+    single, pays = _as_tuple(payloads)
     if world == 1:
-        return (payloads[0] if single else payloads), send_counts
-    raise NotImplementedError(
-        "fast_all_to_all at world > 1 (the multi-rank _a2a_kernel) is not "
-        "ported yet: ROADMAP.md Queue 1 item 11 / Queue 2 row 18")
+        return (pays[0] if single else pays), send_counts
+    _check_stacked(pays, ctx, world)
+    fn = fast_all_to_all_cuda if pays[0].is_cuda else fast_all_to_all_ref
+    return fn(payloads, send_counts, ctx=ctx, world=world,
+              direction=direction)
+
+
+def all_to_all(payloads, send_counts, *, ctx: AllToAllContext):
+    """Host-level wrapper over stacked arrays (JAX :293): each payload
+    ``(world, world, capacity, ...)`` (rank r owns slice [r]), counts
+    (world, world); returns the routed arrays, ``out[r][p] = in[p][r]``,
+    and the received counts. The world is the payloads' first dimension."""
+    _, pays = _as_tuple(payloads)
+    return fast_all_to_all(payloads, send_counts, ctx=ctx,
+                           world=pays[0].shape[0])
+
+
+def _check_stacked(payloads, ctx: AllToAllContext, world: int) -> None:
+    for pay in payloads:
+        if (pay.dim() < 3 or pay.shape[0] != world or pay.shape[1] != world
+                or pay.shape[2] != ctx.capacity):
+            raise ValueError(f"payload {tuple(pay.shape)} != (world={world}, "
+                             f"world={world}, capacity={ctx.capacity}, ...)")
+
+
+def _stack_counts(send_counts, world: int, device) -> torch.Tensor:
+    counts = torch.as_tensor(send_counts, dtype=torch.int32, device=device)
+    if counts.shape != (world, world):
+        raise ValueError(f"send_counts {tuple(counts.shape)} != ({world}, "
+                         f"{world})")
+    return counts.contiguous()
+
+
+def fast_all_to_all_ref(payloads, send_counts, *, ctx: AllToAllContext,
+                        world: int, direction: str = "dispatch"):
+    """Plain version of the multi-rank exchange: ``recv[r][p]`` = the rows
+    of ``payload[p][r]`` below min(count, capacity), byte for byte (the
+    rows past it are zeros here), and the transposed counts. Masks, no host
+    read, so it runs on the card as well."""
+    _check_direction(direction)
+    single, payloads = _as_tuple(payloads)
+    _check_stacked(payloads, ctx, world)
+    dev = payloads[0].device
+    rcounts = _stack_counts(send_counts, world, dev).T.contiguous()
+    live = (torch.arange(ctx.capacity, device=dev)[None, None]
+            < rcounts.clamp(min=0)[..., None])        # (world, world, cap)
+    zero = torch.zeros((), dtype=torch.uint8, device=dev)
+    out = []
+    for pay in payloads:
+        b = pay.contiguous().view(torch.uint8).reshape(
+            world, world, ctx.capacity, -1).transpose(0, 1)
+        got = torch.where(live[..., None], b, zero)
+        out.append(got.view(pay.dtype).reshape(pay.shape))
+    return (out[0] if single else tuple(out)), rcounts
+
+
+def _piece_rows(row_bytes: int, chunk_rows: int, capacity: int) -> int:
+    """Rows of one piece of ``csrc/ep_a2a.cu``: about ``PIECE_BYTES``, cut
+    from one chunk, or whole chunks when a chunk is smaller."""
+    rows = max(1, PIECE_BYTES // row_bytes)
+    if rows < chunk_rows:
+        return rows
+    return min(rows // chunk_rows * chunk_rows, capacity)
+
+
+def _pieces_per_pair(piece_rows: int, chunk_rows: int, capacity: int) -> int:
+    span = max(piece_rows, chunk_rows)
+    return -(-capacity // span) * -(-span // piece_rows)
+
+
+def fast_all_to_all_cuda(payloads, send_counts, *, ctx: AllToAllContext,
+                         world: int, direction: str = "dispatch", recv=None,
+                         producer_delay_ns: int = 0):
+    """Launch ``csrc/ep_a2a.cu`` on the current stream: every rank's
+    exchange in one launch. Payloads ``(world, world, capacity, ...)`` of
+    any dtype (never converted), contiguous, on one card, at most
+    ``MAX_PAYLOADS``; ``send_counts`` (world, world) int32, read on the
+    device only. Returns ``(recv_payloads, recv_counts)``. ``recv`` (one
+    contiguous buffer per payload, like it; default new ``torch.empty``
+    ones) and ``producer_delay_ns`` (every producer item sleeps that long
+    before its copy) let a test poison the receive buffers and hold the
+    pushes back. The call draws its signal epoch here, once."""
+    _check_direction(direction)
+    single, payloads = _as_tuple(payloads)
+    _check_stacked(payloads, ctx, world)
+    if not 1 <= len(payloads) <= MAX_PAYLOADS:
+        raise ValueError(f"1 to {MAX_PAYLOADS} payloads, got {len(payloads)}")
+    dev = payloads[0].device
+    for pay in payloads:
+        if not pay.is_cuda or pay.device != dev:
+            raise ValueError("fast_all_to_all_cuda takes payloads on one CUDA "
+                             "device")
+        if not pay.is_contiguous():
+            raise ValueError("fast_all_to_all_cuda takes contiguous payloads")
+    counts = _stack_counts(send_counts, world, dev)
+    cap, ch = ctx.capacity, ctx.chunk_rows
+    if recv is None:
+        recvs = [torch.empty_like(pay) for pay in payloads]
+    else:
+        _, recvs = _as_tuple(recv)
+        if len(recvs) != len(payloads) or any(
+                r.shape != p.shape or r.dtype != p.dtype or r.device != dev
+                or not r.is_contiguous() for r, p in zip(recvs, payloads)):
+            raise ValueError("recv must hold one contiguous buffer like each "
+                             "payload")
+    row_bytes = [pay.numel() // (world * world * cap) * pay.element_size()
+                 for pay in payloads]
+    if min(row_bytes) < 1:
+        raise ValueError("fast_all_to_all_cuda takes non-empty rows")
+    piece_rows = [_piece_rows(rb, ch, cap) for rb in row_bytes]
+    pieces = world * world * sum(_pieces_per_pair(pr, ch, cap)
+                                 for pr in piece_rows)
+    n = len(payloads)
+    flags = _signal.flags(dev, f"ep_a2a_{direction}", world * world + pieces)
+    cells = torch.empty((world, world), dtype=torch.int32, device=dev)
+    recv_counts = torch.empty((world, world), dtype=torch.int32, device=dev)
+    ticket = torch.empty(1, dtype=torch.int32, device=dev)
+    err = _build.lib().tdt_ep_a2a(
+        (ctypes.c_void_p * n)(*[p.data_ptr() for p in payloads]),
+        (ctypes.c_void_p * n)(*[r.data_ptr() for r in recvs]),
+        (ctypes.c_longlong * n)(*row_bytes),
+        (ctypes.c_longlong * n)(*piece_rows), n, counts.data_ptr(),
+        cells.data_ptr(), recv_counts.data_ptr(), flags.data_ptr(),
+        ticket.data_ptr(), _signal.next_epoch(dev), world, cap, ch,
+        producer_delay_ns, _build.stream_ptr(payloads[0]))
+    _build.check(err, "tdt_ep_a2a")
+    EP_A2A.launches += 1
+    return (recvs[0] if single else tuple(recvs)), recv_counts
 
 
 def _check_layout(payloads, ctx: AllToAllContext, world: int) -> None:

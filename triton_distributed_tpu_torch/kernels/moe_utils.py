@@ -99,23 +99,25 @@ def inverse_index(dst_idx, valid, size: int, n: int):
     return inv[:size]
 
 
-def _take_rows(rows, idx):
+def _take_rows(rows, idx, out=None):
     """``rows[idx]`` with index ``len(rows)`` reading a zero row (the JAX
     gather from ``rows`` with a zero row appended), without the copy of
-    ``rows`` that appending would make."""
+    ``rows`` that appending would make. ``out``: a buffer of the result's
+    shape to write it into (a rank's slice of a rank stack)."""
     n = rows.shape[0]
-    out = rows.index_select(0, idx.clamp(max=max(n - 1, 0)))
+    out = torch.index_select(rows, 0, idx.clamp(max=max(n - 1, 0)), out=out)
     return out.masked_fill_((idx >= n).reshape(-1, *[1] * (rows.dim() - 1)),
                             0)
 
 
-def fill_by_inverse(rows, dst_idx, valid, size: int):
+def fill_by_inverse(rows, dst_idx, valid, size: int, out=None):
     """``grid_flat[dst_idx[i]] = rows[i]`` for valid i (dst unique among
     valid), empty slots zero: an inverse scatter of indices plus a row
-    gather. Returns ``(grid_flat, inv)``, ``inv[j]`` the source row of slot
-    j or ``len(rows)`` for an empty one."""
+    gather (into ``out`` when given). Returns ``(grid_flat, inv)``,
+    ``inv[j]`` the source row of slot j or ``len(rows)`` for an empty
+    one."""
     inv = inverse_index(dst_idx, valid, size, rows.shape[0])
-    return _take_rows(rows, inv), inv
+    return _take_rows(rows, inv, out), inv
 
 
 def _repeat_rows(x, k: int):
@@ -125,14 +127,20 @@ def _repeat_rows(x, k: int):
                                                          *x.shape[1:])
 
 
-def scatter_to_capacity(x, plan: RoutingPlan, *, world: int, capacity: int):
+def _flat_out(out, rows: int):
+    return None if out is None else out.view(rows, out.shape[-1])
+
+
+def scatter_to_capacity(x, plan: RoutingPlan, *, world: int, capacity: int,
+                        out=None):
     """Pack per-token rows into the (world, capacity, hidden) send layout
+    (written into ``out``, a contiguous buffer of that shape, when given)
     plus per-slot expert ids (world, capacity, 1) int32; empty slots hold
     expert id -1."""
     k_dup = plan.dest.shape[0] // x.shape[0]
     send_flat, inv = fill_by_inverse(
         _repeat_rows(x, k_dup), plan.dest * capacity + plan.slot, plan.kept,
-        world * capacity)
+        world * capacity, _flat_out(out, world * capacity))
     send = send_flat.reshape(world, capacity, x.shape[-1])
     ids = _take_rows(plan.expert.to(torch.int32) + 1, inv) - 1  # empty: -1
     ids = ids.reshape(world, capacity, 1)
@@ -152,9 +160,11 @@ def gather_from_capacity(recv, plan: RoutingPlan, *, n_tokens: int):
 
 def tokens_by_local_expert(recv_tokens, recv_ids, recv_counts, *,
                            n_local_experts: int, expert_base,
-                           expert_capacity: int):
+                           expert_capacity: int, out=None):
     """Regroup received (world, capacity, hidden) tokens by local expert into
-    (n_local_experts, expert_capacity, hidden) for the grouped GEMM.
+    (n_local_experts, expert_capacity, hidden) for the grouped GEMM (written
+    into ``out``, a contiguous buffer of that shape, when given). Only rows
+    below each slot's count are read.
 
     Returns (grouped, counts, src_flat_idx, n_dropped): ``counts`` the rows
     each expert holds (filled from slot 0, the rest zero: the grouped-GEMM
@@ -173,21 +183,24 @@ def tokens_by_local_expert(recv_tokens, recv_ids, recv_counts, *,
     n_flat = world * cap
     src = inverse_index(local * expert_capacity + slot, kept,
                         n_local_experts * expert_capacity, n_flat)
-    grouped = _take_rows(flat, src).reshape(n_local_experts, expert_capacity,
-                                            hidden)
+    grouped = _take_rows(flat, src, _flat_out(
+        out, n_local_experts * expert_capacity)).reshape(
+            n_local_experts, expert_capacity, hidden)
     src_flat_idx = torch.where(src == n_flat, -1, src).reshape(
         n_local_experts, expert_capacity)
     return grouped, counts, src_flat_idx, n_dropped
 
 
 def scatter_back_from_experts(expert_out, src_flat_idx, *, world: int,
-                              capacity: int):
+                              capacity: int, out=None):
     """Inverse of ``tokens_by_local_expert``: per-expert results back into
-    the (world, capacity, hidden) layout for the combine."""
+    the (world, capacity, hidden) layout for the combine (written into
+    ``out``, a contiguous buffer of that shape, when given)."""
     e, ec, hidden = expert_out.shape
     idx = src_flat_idx.reshape(-1)
     flat_out, _ = fill_by_inverse(expert_out.reshape(e * ec, hidden), idx,
-                                  idx >= 0, world * capacity)
+                                  idx >= 0, world * capacity,
+                                  _flat_out(out, world * capacity))
     return flat_out.reshape(world, capacity, hidden)
 
 

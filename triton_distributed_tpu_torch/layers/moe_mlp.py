@@ -1,4 +1,4 @@
-"""Mixture-of-Experts MLP (Qwen3-MoE sparse FFN) at world 1.
+"""Mixture-of-Experts MLP (Qwen3-MoE sparse FFN).
 
 Counterpart of ``triton_distributed_tpu/layers/moe_mlp.py`` (``MoEMLP``).
 The router follows HF ``Qwen3MoeSparseMoeBlock``: an f32 softmax over all
@@ -15,7 +15,12 @@ expert outputs.
                  (dispatch to ranks, regroup by local expert) gives the
                  same slots as this one stage: every pair goes to rank 0
                  in flat order, so its dispatch slot is its flat index.
-  ``xla_fwd``  - the golden: the same function without a capacity grid.
+                 Above world 1 it is JAX's two stages over the simulated
+                 ranks (``layers/ep_a2a_layer.py``): route -> dispatch
+                 (``csrc/ep_a2a.cu``) -> the grouped GEMM -> combine
+                 (``csrc/ep_a2a.cu`` again).
+  ``xla_fwd``  - the golden: the same function without a capacity grid,
+                 over the global batch at every world.
                  The JAX golden builds a worst-case grid (capacity n * k per
                  expert: 34 GB at a 4 x 2,048 prefill of Qwen3-30B-A3B);
                  here each expert's rows (a stable sort of the flat expert
@@ -25,6 +30,10 @@ expert outputs.
 
 Leaves (JAX layout): ``router`` (d, E) f32, ``w_gate_up`` (E, d, 2 * ff)
 [gate | up], ``w_down`` (E, ff, d); ``Qwen3`` stacks them over layers.
+At ``world`` > 1 JAX shards the experts over the ranks (``P(axis, None,
+None)``, :94-97) and replicates the router: the expert leaves are held as
+their rank stacks (world, E_local, ...), rank r's experts ``[r E_local,
+(r + 1) E_local)``, which is a free view of the global (E, ...) leaf.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from triton_distributed_tpu_torch.kernels import moe_utils
+from triton_distributed_tpu_torch.layers.ep_a2a_layer import EPAll2AllLayer
 
 
 def _round8(x) -> int:
@@ -70,6 +80,7 @@ class MoEMLP:
     dtype: torch.dtype = torch.bfloat16
     # Capacities are this factor x the uniform-routing expectation.
     capacity_factor: float = 2.0
+    world: int = 1
 
     # -- parameters ---------------------------------------------------------
 
@@ -124,10 +135,10 @@ class MoEMLP:
                                            layer_idx=layer_idx)
 
     def _capacities(self, n_local_tokens: int) -> tuple[int, int]:
-        """(dispatch capacity per rank pair, capacity per expert): the JAX
-        ``_ep_layer`` sizing at world 1, where every expert is on this
-        card)."""
-        world = 1
+        """(dispatch capacity per rank pair, capacity per local expert) for
+        ``n_local_tokens`` tokens a rank: the JAX ``_ep_layer`` sizing
+        (:148-159)."""
+        world = self.world
         pairs = n_local_tokens * self.topk
         cap = min(_round8(pairs * self.capacity_factor / world),
                   _round8(pairs))
@@ -135,6 +146,18 @@ class MoEMLP:
             _round16(world * pairs * self.capacity_factor / self.n_experts),
             _round16(world * cap))
         return cap, ecap
+
+    def _ep_layer(self, n_local_tokens: int) -> EPAll2AllLayer:
+        cap, ecap = self._capacities(n_local_tokens)
+        return EPAll2AllLayer(
+            n_experts=self.n_experts, topk=self.topk, hidden=self.d_model,
+            capacity=cap, expert_capacity=ecap, world=self.world)
+
+    def _global_experts(self, w: torch.Tensor) -> torch.Tensor:
+        """An expert leaf's rank stack (..., world, E_local, a, b) -> the
+        global (..., E, a, b): a view, since rank r holds the contiguous
+        block of experts [r E_local, (r + 1) E_local)."""
+        return w.flatten(-4, -3) if self.world > 1 else w
 
     # -- forwards -----------------------------------------------------------
 
@@ -145,7 +168,15 @@ class MoEMLP:
         be the layer-stacked (L, E, ...) leaves with ``layer_idx`` (the JAX
         signature). ``skip_gemm=False`` takes the plain batched product.
         ``return_stats=True`` also returns ``{"n_dropped_dispatch",
-        "n_dropped_expert"}`` as () int32 device tensors."""
+        "n_dropped_expert"}`` as () int32 device tensors, at world > 1 as
+        (world,) ones, rank by rank.
+
+        At world > 1, x is the M-sharded (M, d): rank r's tokens are the
+        rows ``[r M / world, (r + 1) M / world)`` (JAX's ``P(axis,
+        None)``), and the expert leaves are rank stacks."""
+        if self.world > 1:
+            return self._ep_fwd(params, x, return_stats=return_stats,
+                                skip_gemm=skip_gemm, layer_idx=layer_idx)
         n = x.shape[0]
         pairs = n * self.topk
         w, ids = self.route(params["router"], x)
@@ -170,11 +201,44 @@ class MoEMLP:
                        "n_dropped_expert": n_drop_e}
         return y
 
+    def _ep_fwd(self, params, x: torch.Tensor, *, return_stats: bool,
+                skip_gemm: bool, layer_idx):
+        """``dist_fwd`` over ``world`` simulated ranks (JAX :161-196). The
+        router is row-wise, so it runs once over every rank's rows. Rank
+        r's local expert j is global expert r E_local + j, so the stacked
+        grids, viewed as one (E, expert_capacity, d), go through ONE
+        grouped-GEMM launch per projection against the global weights."""
+        W, E = self.world, self.n_experts
+        M, d = x.shape
+        if M % W:
+            raise ValueError(f"{M} rows not divisible by world {W}")
+        n = M // W
+        w, ids = self.route(params["router"], x)
+        ep = self._ep_layer(n)
+        grouped, counts, state = ep.dispatch(
+            x.reshape(W, n, d), ids.reshape(W, n, -1), w.reshape(W, n, -1))
+        ecap = ep.expert_capacity
+        out = self._expert_ffn(grouped.reshape(E, ecap, d),
+                               self._global_experts(params["w_gate_up"]),
+                               self._global_experts(params["w_down"]),
+                               counts=counts.reshape(E) if skip_gemm else None,
+                               layer_idx=layer_idx)
+        del grouped
+        y = ep.combine(out.reshape(W, E // W, ecap, d), state).reshape(
+            M, d).to(x.dtype)
+        if return_stats:
+            return y, state["stats"]
+        return y
+
     def xla_fwd(self, params, x: torch.Tensor) -> torch.Tensor:
         """Golden: every (token, k) pair through its expert, no capacity, no
-        drops; the k results summed in k order as ``dist_fwd`` sums them."""
+        drops; the k results summed in k order as ``dist_fwd`` sums them.
+        At world > 1 x is the global (M, d), held once (JAX computes the
+        same function over the gathered batch, :198-219)."""
         n, d = x.shape
         k = self.topk
+        w_gate_up = self._global_experts(params["w_gate_up"])
+        w_down = self._global_experts(params["w_down"])
         w, ids = self.route(params["router"], x)
         flat = ids.reshape(-1).long()
         order = torch.sort(flat, stable=True).indices
@@ -187,8 +251,8 @@ class MoEMLP:
             pairs = order[start:start + c]
             rows = x.index_select(0, torch.div(pairs, k,
                                                rounding_mode="floor"))
-            h = _glu(torch.matmul(rows, params["w_gate_up"][e]))
-            out.index_copy_(0, pairs, torch.matmul(h, params["w_down"][e]))
+            h = _glu(torch.matmul(rows, w_gate_up[e]))
+            out.index_copy_(0, pairs, torch.matmul(h, w_down[e]))
             start += c
         rows = out.reshape(n, k, d)
         return (rows * w[..., None].to(rows.dtype)).sum(dim=1).to(x.dtype)

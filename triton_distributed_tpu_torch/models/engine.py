@@ -7,7 +7,8 @@ dense and MoE Qwen3 configs. Modes:
              ``csrc/matmul.cu``, prefill attention through
              ``csrc/flash_prefill.cu``, each decode step's attention through
              ``csrc/flash_decode.cu``, an MoE FFN's expert GEMMs through
-             ``csrc/grouped_gemm.cu``.
+             ``csrc/grouped_gemm.cu`` (above world 1 between the two
+             halves of ``csrc/ep_a2a.cu``'s exchange).
   ``ar``   - the all-reduce mode (dense only): ``torch.matmul``
              projections, the flash and paged attention kernels, and the
              one-shot all-reduce of each block's partial, the identity at
@@ -16,11 +17,13 @@ dense and MoE Qwen3 configs. Modes:
              products and dense attention with f32 probabilities. An
              explicit mode, never a fallback.
 
-``world`` > 1 serves a dense config with that many tensor-parallel ranks
-simulated on one card (the JAX engine's ``mesh``): ``dist`` through the
-multi-rank AG-GEMM and GEMM-RS kernels, ``ar`` through the multi-rank
-one-shot all-reduce (``models/qwen.py``). ``make_paged_step`` (and so
-``BatchEngine``) stays at world 1 for now.
+``world`` > 1 serves with that many tensor-parallel ranks simulated on one
+card (the JAX engine's ``mesh``): ``dist`` through the multi-rank AG-GEMM
+and GEMM-RS kernels and, for an MoE config, the expert-parallel exchange
+(``csrc/ep_a2a.cu``, dispatch and combine) around the grouped GEMM; ``ar``
+(dense only) through the multi-rank one-shot all-reduce
+(``models/qwen.py``). ``make_paged_step`` (and so ``BatchEngine``) stays at
+world 1 for now.
 
 PyTorch runs eagerly, so there is no step to compile; the KV cache is
 written in place where the JAX engine donates its buffers to a jitted step.
@@ -55,8 +58,8 @@ class Engine:
         the plain versions of the kernels. ``params`` is a dict in the JAX
         layout (``Qwen3.init`` or ``params_from_jax``, with the same
         ``world``), moved to ``device``; without it the weights are random
-        from ``seed``. ``world`` simulated tensor-parallel ranks (dense
-        configs; an MoE config raises above 1)."""
+        from ``seed``. ``world`` simulated tensor-parallel ranks (an MoE config's
+        experts split over them: ``n_experts`` divisible by ``world``)."""
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
         check_ar(config, mode)
@@ -80,8 +83,8 @@ class Engine:
         :205): one dist-mode forward over ``input_ids`` (B, L) on a fresh
         cache, returning ``{"n_dropped_dispatch": int, "n_dropped_expert":
         int}``, the (token, expert) pairs the static capacities dropped,
-        summed over layers. A deployment should see zeros; otherwise raise
-        ``moe_capacity_factor``."""
+        summed over layers and ranks. A deployment should see zeros;
+        otherwise raise ``moe_capacity_factor``."""
         if not self.config.n_experts:
             raise ValueError("moe_drop_stats is only meaningful for MoE "
                              "configs (n_experts > 0)")

@@ -14,15 +14,17 @@ The JAX stack walks the layers with ``lax.scan``; here a Python loop walks
 them, and each layer writes its slice of the KV cache (or of the serving
 path's block pool) in place.
 
-At ``world`` > 1 (dense configs, ``Engine``) the tensor-parallel ranks are
-simulated on one card (``runtime/mesh.py``): every leaf JAX shards is held
-as its rank stack, the rank dimension right after the layer dimension
-(``w_qkv`` (L, world, d, q_l + 2 kv_l), ``w_o`` (L, world, q_l, d),
-``w_gate_up`` (L, world, d, 2 ff_l), ``w_down`` (L, world, ff_l, d)); what
-JAX replicates (embeddings, norms, ``lm_head``) is held once. The hidden
-state is (B, L, d) in every mode: in dist mode rank r's rows are the batch
-rows ``[r B / world, (r + 1) B / world)`` (JAX :327-334), so gathering the
-last positions across ranks in rank order is the identity.
+At ``world`` > 1 (``Engine``) the tensor-parallel ranks are simulated on
+one card (``runtime/mesh.py``): every leaf JAX shards is held as its rank
+stack, the rank dimension right after the layer dimension (``w_qkv`` (L,
+world, d, q_l + 2 kv_l), ``w_o`` (L, world, q_l, d); a dense MLP's
+``w_gate_up`` (L, world, d, 2 ff_l) and ``w_down`` (L, world, ff_l, d); an
+MoE config's experts (L, world, E_local, ...), a free view of the global
+leaf); what JAX replicates (embeddings, norms, the router, ``lm_head``)
+is held once. The hidden state is (B, L, d) in every mode: in dist mode
+rank r's rows are the batch rows ``[r B / world, (r + 1) B / world)`` (JAX
+:327-334), so gathering the last positions across ranks in rank order is
+the identity.
 """
 
 from __future__ import annotations
@@ -39,36 +41,43 @@ from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.runtime.device import resolve_device
 from triton_distributed_tpu_torch.runtime.mesh import World
 
-# The leaves JAX shards over the ranks, and the dimension (behind the layer
-# dimension) it shards: P(None, axis) for the column-parallel products,
-# P(axis, None) for the row-parallel ones.
-SHARDED = {("attn", "w_qkv"): 1, ("attn", "w_o"): 0,
-           ("mlp", "w_gate_up"): 1, ("mlp", "w_down"): 0}
+def sharded_leaves(config: ModelConfig) -> dict:
+    """The leaves JAX shards over the ranks (``Qwen3.param_specs``), and
+    the dimension (behind the layer dimension) it shards: P(None, axis) for
+    the column-parallel products, P(axis, None) for the row-parallel ones;
+    an MoE config's experts on E (``MoEMLP.param_specs``), the router
+    replicated. An expert leaf's [gate | up] stays whole per expert: it is
+    not the dense MLP's per-rank interleave."""
+    if config.n_experts:
+        mlp = {("mlp", "w_gate_up"): 0, ("mlp", "w_down"): 0}
+    else:
+        mlp = {("mlp", "w_gate_up"): 1, ("mlp", "w_down"): 0}
+    return {("attn", "w_qkv"): 1, ("attn", "w_o"): 0, **mlp}
 
 
 def check_world(config: ModelConfig, world: int) -> None:
-    """What runs at ``world`` > 1: dense configs whose heads split over
-    the ranks (JAX's ``TPAttn.sizes`` error otherwise)."""
+    """What runs at ``world`` > 1: configs whose heads split over the ranks
+    (JAX's ``TPAttn.sizes`` error otherwise) and, for MoE, whose experts
+    do (the error of JAX's ``route_to_ranks``)."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
-    if world > 1 and config.n_experts:
-        raise NotImplementedError(
-            "an MoE config at world > 1 needs the multi-rank expert "
-            "dispatch (fast_all_to_all, ROADMAP.md Queue 2 row 18), not "
-            "ported yet")
+    if world > 1 and config.n_experts % world:
+        raise ValueError(f"n_experts {config.n_experts} not divisible by "
+                         f"world {world}")
     if world > 1:
         Qwen3(config, world=world).attn.sizes(world)
 
 
-def shard_layers(params: dict, world: int) -> dict:
-    """The JAX-global parameter dict -> the rank-stacked one: each
-    ``SHARDED`` leaf (L, ...) becomes (L, world, ...); the rest is kept."""
+def shard_layers(params: dict, config: ModelConfig, world: int) -> dict:
+    """The JAX-global parameter dict -> the rank-stacked one: each leaf of
+    ``sharded_leaves(config)`` (L, ...) becomes (L, world, ...); the rest
+    is kept."""
     if world == 1:
         return params
     w = World(world)
     layers = {k: dict(v) if isinstance(v, dict) else v
               for k, v in params["layers"].items()}
-    for (block, name), dim in SHARDED.items():
+    for (block, name), dim in sharded_leaves(config).items():
         layers[block][name] = w.split(layers[block][name], dim + 1, at=1)
     return {**params, "layers": layers}
 
@@ -118,7 +127,7 @@ def params_from_jax(tree, config: ModelConfig, device=None, *,
     }
     if not config.tie_embeddings:
         params["lm_head"] = conv(tree["lm_head"], mat)
-    return shard_layers(params, world)
+    return shard_layers(params, config, world)
 
 
 MODES = ("dist", "xla", "ar")
@@ -156,7 +165,8 @@ class Qwen3:
             return MoEMLP(d_model=c.d_model, d_ff=c.moe_d_ff,
                           n_experts=c.n_experts, topk=c.n_experts_per_tok,
                           norm_topk_prob=c.norm_topk_prob, dtype=c.dtype,
-                          capacity_factor=c.moe_capacity_factor)
+                          capacity_factor=c.moe_capacity_factor,
+                          world=self.world)
         return TPMLP(d_model=c.d_model, d_ff=c.d_ff, world=self.world)
 
     def init(self, seed: int, device) -> dict:
@@ -182,7 +192,7 @@ class Qwen3:
             return torch.ones(shape, dtype=torch.float32, device=device)
 
         if self.world > 1:
-            return self._init_stacked(randw, ones)
+            return self._init_stacked(randw, ones, gen, device)
         w_qkv = TPAttn.pack_qkv(randw((L, d, c.n_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d),
                                 randw((L, d, c.n_kv_heads * dh), d))
@@ -212,9 +222,11 @@ class Qwen3:
             params["lm_head"] = randw((d, c.vocab_size), d)
         return params
 
-    def _init_stacked(self, randw, ones) -> dict:
-        """``init`` at world > 1 (dense): the sharded leaves drawn in their
-        rank stacks, the replicated ones once."""
+    def _init_stacked(self, randw, ones, gen, device) -> dict:
+        """``init`` at world > 1: the sharded leaves drawn in their rank
+        stacks, the replicated ones once. An MoE config's expert leaves are
+        drawn global and viewed as their stacks (rank r's experts are a
+        contiguous block)."""
         c, w = self.config, self.world
         L, d, dh = c.n_layers, c.d_model, c.head_dim
         qs, kvs = self.attn.sizes(w)
@@ -230,13 +242,24 @@ class Qwen3:
                 "input_norm": ones(L, d),
                 "post_norm": ones(L, d),
                 "attn": layer_attn,
-                "mlp": {"w_gate_up": randw((L, w, d, 2 * c.d_ff // w), d),
-                        "w_down": randw((L, w, c.d_ff // w, d), c.d_ff)},
+                "mlp": self._init_stacked_mlp(randw, gen, device),
             },
         }
         if not c.tie_embeddings:
             params["lm_head"] = randw((d, c.vocab_size), d)
         return params
+
+    def _init_stacked_mlp(self, randw, gen, device) -> dict:
+        c, w = self.config, self.world
+        L, d = c.n_layers, c.d_model
+        if not c.n_experts:
+            return {"w_gate_up": randw((L, w, d, 2 * c.d_ff // w), d),
+                    "w_down": randw((L, w, c.d_ff // w, d), c.d_ff)}
+        mlp = self.mlp.init(gen, device, L)
+        for (block, name), dim in sharded_leaves(c).items():
+            if block == "mlp":
+                mlp[name] = World(w).split(mlp[name], dim + 1, at=1)
+        return mlp
 
     def forward(self, params, ids, k_cache, v_cache, offset, *,
                 mode: str = "dist", seq_lens=None, block_tables=None,
@@ -263,14 +286,15 @@ class Qwen3:
         ``return_moe_stats=True`` (MoE, ``mode="dist"``) returns ``(logits,
         stats)``: ``stats`` the (token, expert) pairs the static capacities
         dropped, ``{"n_dropped_dispatch", "n_dropped_expert"}`` () int32
-        device tensors summed over layers (the JAX :315-347).
+        device tensors summed over layers and ranks (the JAX :315-347,
+        :446-447).
 
         An MoE config routes every row of the step, padding rows included,
         as the JAX stack does (``hn.reshape(-1, d)``).
 
-        At ``world`` > 1 (dense, contiguous cache): the parameters in their
-        rank stacks, the cache in the global layout, and in dist and xla
-        mode B divisible by world (JAX's ``ValueError`` otherwise)."""
+        At ``world`` > 1 (contiguous cache): the parameters in their rank
+        stacks, the cache in the global layout, and in dist and xla mode B
+        divisible by world (JAX's ``ValueError`` otherwise)."""
         c = self.config
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; modes: {MODES}")
@@ -328,6 +352,8 @@ class Qwen3:
                                  layer_idx=i)
                 if return_moe_stats:
                     m, layer = m
+                    layer = {k: v.sum(dtype=torch.int32)
+                             for k, v in layer.items()}
                     stats = (layer if stats is None else
                              {k: stats[k] + layer[k] for k in stats})
             elif mode == "dist":

@@ -5,7 +5,8 @@ the port's kernels need: ``Hardware``, ``detect_hardware``,
 ``est_matmul`` (:330), ``hbm_gbps``, ``peak_bf16_tflops``, the all-reduce
 estimates that pick a method (``est_oneshot_all_reduce`` :204,
 ``est_twoshot_all_reduce`` :214, ``wire_bytes_all_reduce`` :253, with the
-ring terms they build on), and the bytes and operations that the
+ring terms they build on), the all-to-all's ``wire_bytes_all_to_all``
+(:263) and ``est_push_all_gather`` (:160), and the bytes and operations that the
 collective loopbacks and the multi-rank kernels must move or do (the
 least, for their bounds). The
 table holds published data-sheet numbers of the cards the port runs on. An
@@ -124,6 +125,17 @@ def a2a_loopback_bytes(counts, capacity: int, row_bytes) -> int:
     return 2 * rows * sum(row_bytes) + 2 * 4 * len(counts)
 
 
+def ep_a2a_bytes(counts, capacity: int, row_bytes) -> int:
+    """Least bytes of the multi-rank all-to-all (``csrc/ep_a2a.cu``): every
+    payload's rows below each (src, dst) pair's count (at most
+    ``capacity``, none for a count below 1) read once and written once,
+    plus the counts read and the received counts written. ``counts`` the
+    (world, world) counts (host ints), ``row_bytes`` each payload's bytes
+    per row. The count cells are scratch that stands in for the link."""
+    return a2a_loopback_bytes([int(c) for row in counts for c in row],
+                              capacity, row_bytes)
+
+
 def producer_consumer_bytes(nbytes: int) -> int:
     """Least bytes of the notify/wait ring over an x of ``nbytes``: x read
     once, the output (every rank's received stream) written once."""
@@ -191,6 +203,23 @@ def wire_bytes_all_reduce(nbytes: int, world: int,
     if method in ("one_shot", "oneshot"):
         return (world - 1) * nbytes
     return 2 * (world - 1) * nbytes // world
+
+
+def wire_bytes_all_to_all(per_dev_nbytes: int, world: int) -> int:
+    """Bytes each rank sends in an all-to-all of its ``(world, cap, ...)``
+    slot buffers (``per_dev_nbytes`` in all, JAX :263): every slot but its
+    own."""
+    return (world - 1) * per_dev_nbytes // world
+
+
+def est_push_all_gather(nbytes: int, world: int,
+                        hw: Hardware | None = None) -> float:
+    """Direct-push (a2a) allgather of one ``nbytes`` shard (JAX :160):
+    world - 1 concurrent pushes, one hop of latency, and the entry
+    barrier's signal round."""
+    hw = hw or detect_hardware()
+    barrier = 2 * hw.hop_lat
+    return _push_bandwidth_term(nbytes, world, hw) + hw.hop_lat + barrier
 
 
 # -- the multi-rank kernels' own work (the whole world's, on one card) -----
