@@ -134,7 +134,23 @@ script exits non-zero without its result line:
    forward, AG-GEMM and GEMM-RS 48 per forward, flash prefill 48, flash
    decode 48 x 31), the prefill logits unchanged with every receive
    buffer NaN-poisoned and held against the xla golden with phase 3c's
-   bars, TTFT, decode tokens/s, the peak memory and a device profile.
+   bars, TTFT, decode tokens/s, the peak memory and a device profile;
+9. the MoE tensor-parallel pipeline and the reduce-scatter at world 8 on
+   one card (seeded; the ranks simulated): the one-shot and ring
+   reduce-scatters (``csrc/oneshot_rs.cu``, ``ring_rs.cu``) bit for bit
+   their plain versions at a Qwen3-32B TP = 8 layer's partial output (8,
+   8,192, 5,120) and (8, 128, 5,120) bf16 and in f32; AG-GroupGEMM and
+   GroupGEMM-RS (``csrc/ag_group_gemm.cu``, ``group_gemm_rs.cu``) at
+   Qwen3-30B-A3B's width (128 experts, top-8, d 2,048, f_local 96) on the
+   prefill's grids (capacity 128) and the decode's (capacity 8), at bf16
+   tolerance and bit for bit on exact products; every staging slot what
+   was pushed, and each again with 1 ms-delayed producers behind NaN
+   staging; then the path with exact launch counts: ``ag_moe_mlp_device``
+   at 8 x 1,024 and 8 x 4 tokens (no drops, held against the plain
+   pipeline on the card and the dense f32 golden with phase 3's bars) and
+   the host ``reduce_scatter`` at both Qwen3-32B shapes, AUTO and ring;
+   the four kernels' times (kernel, device alone, plain, library call,
+   bound) and the peak memory.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -285,9 +301,26 @@ EP_COUNTS = [[16384, 0, 4099, 1], [4096, 4096, 4096, 4096],
              [0, 0, 0, 16384], [7, 8, 9, 4095]]
 EP_BALANCED = [[4096] * 4] * 4
 EP_DECODE_COUNTS = [[8, 0, 1, 2], [2, 2, 2, 2], [0, 0, 0, 8], [1, 3, 5, 7]]
-# Phases 5-8's kernels: the world-1 serving paths launch none of them.
+
+# Phase 9: the MoE tensor-parallel pipeline (ag_moe_mlp_device) at world 8
+# and Qwen3-30B-A3B's width (models/config.py:83-86: d 2,048, 128 experts,
+# top-8, moe_d_ff 768, so f_local 96 a rank): a prefill of 8,192 tokens
+# (phases 3c and 8's 4 x 2,048), 1,024 a rank, at capacity 128 (twice the
+# mean 64 tokens of one (source, expert)), and a decode of 32 tokens (4 a
+# rank) at capacity 8 (no drop is possible: a token's 8 ids are distinct).
+# The reduce-scatter at a Qwen3-32B TP = 8 layer's partial output: (8,
+# 8,192, 5,120) bf16 at prefill (8 x 1,024 tokens) and (8, 128, 5,120) at
+# decode, and an f32 case.
+MT_WORLD = 8
+MT_PREFILL = (1024, 128)           # tokens a rank, capacity
+MT_DECODE = (4, 8)
+MT_RS_PREFILL, MT_RS_DECODE, MT_RS_F32 = (8192, 5120), (128, 5120), (1000,
+                                                                     384)
+MT_GOLDEN_TOKENS = 256             # prefill tokens held against the golden
+MT_KERNELS = ("ag_group_gemm", "group_gemm_rs", "oneshot_rs", "ring_rs")
+# Phases 5-9's kernels: the world-1 serving paths launch none of them.
 NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS
-                           + EP_KERNELS, 0)
+                           + EP_KERNELS + MT_KERNELS, 0)
 
 
 def say(*parts):
@@ -1933,8 +1966,10 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
     records: the card's share alone, without the host's launch path that
     CUDA events around a short call also catch. The mean is over the
     launches the profiler recorded (it may miss a few of n). A session
-    that recorded none of them (seen once, late in a run of many sessions,
-    for a 7 us kernel) is run again, at most three times in all."""
+    that recorded none of them (seen late in a run of many sessions) is run
+    again, at most three times in all; after that the device time is not
+    measured and the result is NaN. It only reports a time: no check of a
+    kernel's result reads it."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -1955,9 +1990,13 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
             break
         say(f"the profiler saw no launch of {kernel} in {n} calls "
             f"(session {attempt + 1} of 3)")
-    if not 0 < seen <= n:
+    if seen > n:
         raise AssertionError(f"the profiler saw {seen} launches of {kernel} "
                              f"in {n} calls")
+    if not seen:
+        say(f"{kernel}: device time alone not measured (the profiler "
+            f"recorded no launch in 3 sessions)")
+        return float("nan")
     return sum(ev.self_device_time_total for ev in evs) / seen / 1e3
 
 
@@ -2839,6 +2878,339 @@ def phase_ep_slice(Engine, ModelConfig, kernels, MoEMLP, nn, card):
     return {"ep_a2a": launches["ep_a2a"]}
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+def mt_inputs(gen, m, wu, wd):
+    """One MoE layer's inputs at world 8: bf16 tokens (8, m, 2,048), top-8
+    ids distinct per token and drawn uniformly, random weights renormalised
+    to sum to 1 a token; and the rank stacks of the layer's weights."""
+    x = randn(gen, MT_WORLD, m, MOE_D)
+    ids = torch.rand(MT_WORLD * m, MOE_E, generator=gen, device="cuda")
+    ids = ids.argsort(dim=1)[:, :MOE_K].to(torch.int32).reshape(
+        MT_WORLD, m, MOE_K)
+    wts = torch.rand(MT_WORLD, m, MOE_K, generator=gen, device="cuda")
+    return x, ids, wts / wts.sum(-1, keepdim=True), wu, wd
+
+
+def mt_golden(x, ids, wts, w_up, w_down):
+    """The dense per-token f32 MoE MLP (JAX's _moe_golden,
+    tests/test_moe_overlap.py:22) over the full weights: each token's 8
+    experts, silu, weighted sum; computed expert by expert."""
+    x, ids, wts = (t.reshape(-1, t.shape[-1]) for t in (x, ids, wts))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e in range(MOE_E):
+        tok, j = (ids == e).nonzero(as_tuple=True)
+        if tok.numel():
+            h = torch.nn.functional.silu(x[tok].float() @ w_up[e].float())
+            out.index_add_(0, tok, wts[tok, j, None] * (h @ w_down[e].float()))
+    return out
+
+
+def mt_check_rs(trs, label, x, err):
+    """Both reduce-scatters bit for bit their plain versions, every staging
+    slot what was pushed, and again with the producers held back 1 ms
+    behind NaN staging."""
+    for name, run, ref in (
+            ("oneshot_rs", trs.oneshot_reduce_scatter_cuda,
+             trs.oneshot_reduce_scatter_ref),
+            ("ring_rs", trs.ring_reduce_scatter_cuda,
+             trs.ring_reduce_scatter_ref)):
+        got, staging = run(x)
+        want, want_staging = ref(x, return_staging=True)
+        poison = torch.full_like(staging, float("nan"))
+        slow, _ = run(x, staging=poison, producer_delay_ns=PRODUCER_DELAY_NS)
+        if not (torch.equal(got, want) and torch.equal(staging, want_staging)
+                and torch.equal(slow, got) and torch.equal(poison, staging)):
+            raise AssertionError(f"phase 9: {name} {label}: not the plain "
+                                 f"version's bits")
+        err[name] = max(err[name], 0.0)
+        say(f"phase 9: {name} {label} {tuple(x.shape)} {str(x.dtype)[6:]}: "
+            f"bit-identical to the plain version, staging == the pushes; "
+            f"1 ms-delayed producers behind NaN staging: the same")
+        del got, staging, want, want_staging, poison, slow
+
+
+def mt_check_ag(tmo, label, grids, w, err, exact=False):
+    """AG-GroupGEMM against the plain version (bit for bit on exact
+    products, else at bf16 tolerance), the staging == every rank's gathered
+    grids, and again with the producers held back 1 ms behind NaN staging:
+    bit-identical."""
+    got, staging = tmo.ag_group_gemm_cuda(grids, w)
+    want, want_staging = tmo.ag_group_gemm_ref(grids, w, return_staging=True)
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 9: ag_group_gemm {label}: not the "
+                                 f"plain version's bits")
+        e = 0.0
+    else:
+        e = check_close(f"phase 9: ag_group_gemm {label}", got, want,
+                        torch.bfloat16)
+    if not torch.equal(staging, want_staging):
+        raise AssertionError(f"phase 9: ag_group_gemm {label}: staging != "
+                             f"the gathered grids")
+    del want, want_staging
+    poison = torch.full_like(staging, float("nan"))
+    slow, _ = tmo.ag_group_gemm_cuda(grids, w, staging=poison,
+                                     producer_delay_ns=PRODUCER_DELAY_NS)
+    if not (torch.equal(slow, got) and torch.equal(poison, staging)):
+        raise AssertionError(f"phase 9: ag_group_gemm {label}: delayed "
+                             f"producers changed the result or staging")
+    err["ag_group_gemm"] = max(err["ag_group_gemm"], e)
+    say(f"phase 9: ag_group_gemm {label} grids {tuple(grids.shape)} x w "
+        f"{tuple(w.shape)} bf16: "
+        f"{'bit-identical' if exact else f'max_abs_err {e:.4g}'}, staging "
+        f"== the gathered grids; 1 ms-delayed producers behind NaN staging: "
+        f"bit-identical")
+
+
+def mt_check_grs(tmo, label, act, w, err, exact=False):
+    """GroupGEMM-RS against the plain version: on exact products the fold
+    bit for bit, every slot the pushed partial, and again with the product
+    tiles held back 1 ms behind NaN staging; else at bf16 tolerance."""
+    got, staging = tmo.group_gemm_rs_cuda(act, w)
+    if not exact:
+        e = check_close(f"phase 9: group_gemm_rs {label}", got,
+                        tmo.group_gemm_rs_ref(act, w), torch.bfloat16)
+        err["group_gemm_rs"] = max(err["group_gemm_rs"], e)
+        say(f"phase 9: group_gemm_rs {label} act {tuple(act.shape)} x w "
+            f"{tuple(w.shape)} bf16: max_abs_err {e:.4g}")
+        return
+    want, want_staging = tmo.group_gemm_rs_ref(act, w, return_staging=True)
+    ok = torch.equal(got, want) and torch.equal(staging, want_staging)
+    del want, want_staging
+    poison = torch.full_like(staging, float("nan"))
+    slow, _ = tmo.group_gemm_rs_cuda(act, w, staging=poison,
+                                     producer_delay_ns=PRODUCER_DELAY_NS)
+    if not (ok and torch.equal(slow, got) and torch.equal(poison, staging)):
+        raise AssertionError(f"phase 9: group_gemm_rs {label}: the fold or "
+                             f"its staging is not the plain version's")
+    say(f"phase 9: group_gemm_rs {label} act {tuple(act.shape)} x w "
+        f"{tuple(w.shape)} bf16: bit-identical fold and staging, also with "
+        f"1 ms-delayed product tiles behind NaN staging")
+
+
+def phase_moe_tp(gen, kernels, card):
+    """Phase 9: the MoE-TP pipeline and the reduce-scatter at world 8 on one
+    card. (a) The four kernels against their plain versions at the path's
+    shapes; (b) the path (``ag_moe_mlp_device`` at the prefill and decode
+    shapes, the host ``reduce_scatter`` at both Qwen3-32B shapes, AUTO and
+    the ring) with exact launch counts, held against the plain pipeline
+    and the dense golden; (c) the kernels' times. Returns (launches, max
+    abs errors, times)."""
+    from triton_distributed_tpu_torch.kernels import moe_overlap as tmo
+    from triton_distributed_tpu_torch.kernels import moe_utils as tmu
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+    from triton_distributed_tpu_torch.runtime.mesh import World
+    import importlib
+
+    trs = importlib.import_module(
+        "triton_distributed_tpu_torch.kernels.reduce_scatter")
+    w = MT_WORLD
+    torch.cuda.reset_peak_memory_stats()
+    err = dict.fromkeys(MT_KERNELS, 0.0)
+    w_up = randn(gen, MOE_E, MOE_D, MOE_FF, scale=MOE_D ** -0.5)
+    w_down = randn(gen, MOE_E, MOE_FF, MOE_D, scale=MOE_FF ** -0.5)
+    wu, wd = World(w).split(w_up, 2), World(w).split(w_down, 1)
+    fl = MOE_FF // w
+    prefill = mt_inputs(gen, MT_PREFILL[0], wu, wd)
+    decode = mt_inputs(gen, MT_DECODE[0], wu, wd)
+
+    # (a) Each kernel against its plain version at the path's shapes.
+    x_rs = {"prefill": randn(gen, w, *MT_RS_PREFILL),
+            "decode": randn(gen, w, *MT_RS_DECODE)}
+    for label, x in x_rs.items():
+        mt_check_rs(trs, label, x, err)
+    mt_check_rs(trs, "f32", randn(gen, w, *MT_RS_F32, dtype=torch.float32),
+                err)
+    for label, (x, ids, _, _, _), (m, cap) in (
+            ("prefill", prefill, MT_PREFILL), ("decode", decode, MT_DECODE)):
+        grids = tmu.route_rank_stack(x, ids, n_experts=MOE_E,
+                                     capacity=cap)[0]
+        mt_check_ag(tmo, label, grids, wu, err)
+        ex = tmu.route_rank_stack(tp_exact(gen, w, m, MOE_D, 1)[0], ids,
+                                  n_experts=MOE_E, capacity=cap)[0]
+        mt_check_ag(tmo, f"{label} exact", ex, wu, err, exact=True)
+        del grids, ex
+        free_card()
+        act = torch.nn.functional.silu(randn(gen, w, MOE_E, w * cap, fl,
+                                             dtype=torch.float32)).to(
+            torch.bfloat16)
+        mt_check_grs(tmo, label, act, wd, err)
+        mt_check_grs(tmo, f"{label} exact", tp_exact(
+            gen, w, MOE_E * w * cap, fl, 1)[0].reshape(w, MOE_E, w * cap, fl),
+            wd, err, exact=True)
+        del act
+        free_card()
+
+    # (b) The path, counts reset just before and read just after.
+    methods = {label: trs.choose_reduce_scatter_method(
+        w, x[0].numel() * x.element_size()) for label, x in x_rs.items()}
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    outs = {label: tmo.ag_moe_mlp_device(
+        *inp, world=w, n_experts=MOE_E, capacity=cap)
+        for label, inp, (_, cap) in (("prefill", prefill, MT_PREFILL),
+                                     ("decode", decode, MT_DECODE))}
+    rs_outs = {(label, method): trs.reduce_scatter(x, world=w, method=method)
+               for label, x in x_rs.items() for method in ("auto", "ring")}
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    expected = {k: 0 for k in kernels.KERNELS}
+    expected.update(ag_group_gemm=2, group_gemm_rs=2, ring_rs=2)
+    for method in methods.values():
+        expected["oneshot_rs" if method == "oneshot" else "ring_rs"] += 1
+    say(f"phase 9: path launches {launches} (expected {expected}); AUTO "
+        f"picks {methods}")
+    if launches != expected:
+        raise AssertionError(f"phase 9: launch counts {launches} != "
+                             f"{expected}")
+    for label, x in x_rs.items():
+        nb = x[0].numel() * x.element_size()
+        say(f"phase 9: reduce_scatter AUTO at {tuple(x.shape)} bf16 ({nb} B "
+            f"a rank): {methods[label]} (one-shot "
+            f"{pm.est_oneshot_reduce_scatter(nb, w) * 1e6:.2f} us, ring "
+            f"{pm.est_ring_reduce_scatter(nb, w) * 1e6:.2f} us by the model: "
+            f"NVLink figures published, hop latency assumed)")
+        for method in ("auto", "ring"):
+            ref = (trs.ring_reduce_scatter_ref if method == "ring"
+                   or methods[label] == "ring"
+                   else trs.oneshot_reduce_scatter_ref)
+            if not torch.equal(rs_outs[label, method],
+                               ref(x).reshape(-1, x.shape[2])):
+                raise AssertionError(f"phase 9: reduce_scatter {label} "
+                                     f"{method}: not the plain version's")
+    say("phase 9: reduce_scatter at both shapes, AUTO and ring: "
+        "bit-identical to the plain versions")
+    del rs_outs
+    for label, inp, (m, cap) in (("prefill", prefill, MT_PREFILL),
+                                 ("decode", decode, MT_DECODE)):
+        out, n_dropped = outs[label]
+        if out.shape != (w, m, MOE_D) or not torch.isfinite(out).all():
+            raise AssertionError(f"phase 9: {label} output {out.shape} "
+                                 f"not finite")
+        if n_dropped.tolist() != [0] * w:
+            raise AssertionError(f"phase 9: {label} dropped "
+                                 f"{n_dropped.tolist()}")
+        want, want_dropped = tmo.ag_moe_mlp_ref(*inp, world=w,
+                                                n_experts=MOE_E,
+                                                capacity=cap)
+        e = check_close(f"phase 9: ag_moe_mlp {label} vs the plain pipeline",
+                        out, want, torch.bfloat16)
+        if not torch.equal(want_dropped, n_dropped):
+            raise AssertionError(f"phase 9: {label} drop counts differ")
+        del want
+        x, ids, wts = inp[:3]
+        n = min(MT_GOLDEN_TOKENS // w, m)
+        golden = mt_golden(x[:, :n], ids[:, :n], wts[:, :n], w_up, w_down)
+        if not golden_bars(f"phase 9: ag_moe_mlp {label}, {w * n} tokens "
+                           f"vs the dense f32 golden",
+                           out[:, :n].reshape(-1, MOE_D), golden):
+            raise AssertionError(f"phase 9: ag_moe_mlp {label} disagrees "
+                                 f"with the dense golden")
+        say(f"phase 9: ag_moe_mlp {label} (8 x {m} tokens, capacity {cap}, "
+            f"d {MOE_D}, {MOE_E} experts top-{MOE_K}, f_local {fl}): no "
+            f"drops, max_abs_err {e:.4g} vs the plain pipeline")
+    del outs
+    free_card()
+
+    # (c) Times at the prefill shapes: kernel (CUDA events, L2 flushed),
+    # device alone (torch.profiler), plain, one library call (or a stated
+    # pair), bound (the rows the routing filled).
+    timer = Timer("cuda")
+    rows, x, ids = {}, prefill[0], prefill[1]
+    grids, _, _, _, counts = tmu.route_rank_stack(
+        x, ids, n_experts=MOE_E, capacity=MT_PREFILL[1])
+    live = int(counts.sum())
+    cap = MT_PREFILL[1]
+    gathered = grids.transpose(0, 1).reshape(MOE_E, w * cap, MOE_D)
+    up = tmo.ag_group_gemm_cuda(grids, wu)[0]
+    act = torch.nn.functional.silu(up.float()).to(up.dtype)
+    del up
+    flops = pm.group_gemm_flops(w, live, MOE_D, fl)
+    for name, run, ref, lib, nbytes in (
+            ("ag_group_gemm", lambda: tmo.ag_group_gemm_cuda(grids, wu),
+             lambda: tmo.ag_group_gemm_ref(grids, wu),
+             lambda: torch.matmul(gathered, w_up),
+             pm.ag_group_gemm_bytes(w, MOE_E, cap, MOE_D, fl, 2, rows=live)),
+            ("group_gemm_rs", lambda: tmo.group_gemm_rs_cuda(act, wd),
+             lambda: tmo.group_gemm_rs_ref(act, wd),
+             lambda: torch.matmul(act, wd).sum(0),
+             pm.group_gemm_rs_bytes(w, MOE_E, cap, MOE_D, fl, 2,
+                                    rows=live))):
+        t_b, by = bound_ms(flops, nbytes)
+        rows[name] = dict(ms=timer(run, reps=10),
+                          device_ms=kernel_device_ms(run, f"{name}_kernel",
+                                                     n=10),
+                          plain_ms=timer(ref, reps=3),
+                          library_ms=timer(lib, reps=10), bound_ms=t_b,
+                          bound_by=by)
+        free_card()
+    full, _ = bound_ms(pm.group_gemm_flops(w, w * MOE_E * cap, MOE_D, fl),
+                       pm.ag_group_gemm_bytes(w, MOE_E, cap, MOE_D, fl, 2))
+    say(f"phase 9: the prefill grids hold {live} of {w * MOE_E * cap} rows "
+        f"({pm.group_gemm_flops(w, live, MOE_D, fl):.4g} operations over "
+        f"every rank; whole grids: "
+        f"{pm.group_gemm_flops(w, w * MOE_E * cap, MOE_D, fl):.4g}, bound "
+        f"{full:.4f} ms); the kernels multiply every row, the bound counts "
+        f"the filled ones")
+    dgrids = tmu.route_rank_stack(decode[0], decode[1], n_experts=MOE_E,
+                                  capacity=MT_DECODE[1])[0]
+    dact = torch.nn.functional.silu(tmo.ag_group_gemm_cuda(
+        dgrids, wu)[0].float()).to(torch.bfloat16)
+    dcap = MT_DECODE[1]
+    for name, run, nbytes in (
+            ("ag_group_gemm", lambda: tmo.ag_group_gemm_cuda(dgrids, wu),
+             pm.ag_group_gemm_bytes(w, MOE_E, dcap, MOE_D, fl, 2)),
+            ("group_gemm_rs", lambda: tmo.group_gemm_rs_cuda(dact, wd),
+             pm.group_gemm_rs_bytes(w, MOE_E, dcap, MOE_D, fl, 2))):
+        t_b, by = bound_ms(pm.group_gemm_flops(w, w * MOE_E * dcap, MOE_D,
+                                               fl), nbytes)
+        say(f"phase 9: {name} at the decode shape (capacity {dcap}): kernel "
+            f"{timer(run, reps=20):.4f} ms, device alone "
+            f"{kernel_device_ms(run, f'{name}_kernel'):.4f} ms, bound "
+            f"{t_b:.4f} ms ({by}: whole grids, every weight shard) [{card}]")
+    del grids, gathered, act, dgrids, dact
+    free_card()
+    for label, x in x_rs.items():
+        m, n = x.shape[1] // w, x.shape[2]
+        nb = x[0].numel() * x.element_size()
+        t_b, by = bound_ms(0, pm.reduce_scatter_bytes(w, nb))
+        t_l = timer(lambda: x.view(w, w, m, n).float().sum(0), reps=10)
+        for name, run, ref, kern in (
+                ("oneshot_rs", trs.oneshot_reduce_scatter_cuda,
+                 trs.oneshot_reduce_scatter_ref, "oneshot_rs_kernel"),
+                ("ring_rs", trs.ring_reduce_scatter_cuda,
+                 trs.ring_reduce_scatter_ref, "ring_rs_kernel")):
+            r = dict(ms=timer(lambda: run(x), reps=10),
+                     device_ms=kernel_device_ms(lambda: run(x), kern, n=10),
+                     plain_ms=timer(lambda: ref(x), reps=3), library_ms=t_l,
+                     bound_ms=t_b, bound_by=by)
+            if label == "prefill":
+                rows[name] = r
+            say(f"phase 9: {name} {label} {tuple(x.shape)} times: kernel "
+                f"{r['ms']:.4f} ms (device alone {r['device_ms']:.4f}), "
+                f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f}"
+                f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                f"[{card}]")
+    for name in ("ag_group_gemm", "group_gemm_rs"):
+        r = rows[name]
+        say(f"phase 9: {name} prefill times: kernel {r['ms']:.4f} ms "
+            f"(device alone {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}"
+            f" ms, library {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}); one card stands in "
+            f"for {w}: the link is bypassed [{card}]")
+    say("phase 9: library calls: ag_group_gemm torch.matmul of the gathered "
+        "grids (E, 8 cap, d) against the unsharded w_up (E, d, 768), every "
+        "rank's f shard side by side; group_gemm_rs torch.matmul(act, "
+        "w_down).sum(0) (two calls); the reduce-scatters "
+        "x.view(w, w, m, n).float().sum(0)")
+    say(f"phase 9: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB [{card}]")
+    del x_rs, prefill, decode, wu, wd, w_up, w_down
+    free_card()
+    return {k: launches[k] for k in MT_KERNELS}, err, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2936,6 +3308,11 @@ def main() -> int:
     ep_small_engine(Engine, ModelConfig, kernels)
     launches.update(phase_ep_slice(Engine, ModelConfig, kernels, MoEMLP, nn,
                                    card))
+    free_card()
+    mt_launches, mt_err, mt_times = phase_moe_tp(gen, kernels, card)
+    launches.update(mt_launches)
+    err.update(mt_err)
+    times.update(mt_times)
 
     record = []
     for name, kern in kernels.KERNELS.items():

@@ -6,6 +6,7 @@ machine with an H100 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 Tolerances: bf16 output ``atol=rtol=2e-2``; fp32 output ``atol=rtol=1e-4``
 (the kernel sums in another order than the plain version)."""
 
+import importlib
 import math
 import time
 
@@ -19,11 +20,17 @@ from triton_distributed_tpu_torch.kernels import allgather_gemm as tg
 from triton_distributed_tpu_torch.kernels import allreduce as tar
 from triton_distributed_tpu_torch.kernels import ep_all_to_all as tea
 from triton_distributed_tpu_torch.kernels import gemm_reduce_scatter as trs
+from triton_distributed_tpu_torch.kernels import moe_overlap as tmo
 from triton_distributed_tpu_torch.kernels import moe_utils as tmu
 from triton_distributed_tpu_torch.kernels import notify_wait as tnw
 from triton_distributed_tpu_torch.kernels import paged_attention as tpa
 from triton_distributed_tpu_torch.kernels import sp_attention as tsp
 from triton_distributed_tpu_torch.layers.nn import quantize_kv_rows
+from triton_distributed_tpu_torch.runtime.mesh import World
+
+# The kernels package exports functions under some of its modules' names.
+trsc = importlib.import_module(
+    "triton_distributed_tpu_torch.kernels.reduce_scatter")
 
 pytestmark = pytest.mark.gpu
 
@@ -850,3 +857,210 @@ def test_ep_a2a_waits_for_delayed_producers(cuda, world):
             >= rc.clamp(0, cap)[..., None])
     assert (got[0].view(torch.uint8)[past] == 0xFF).all()
     assert torch.isnan(got[1][past]).all()
+
+
+# -- the reduce-scatters and the MoE-TP kernels (simulated ranks) ------------
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 1024, 5120), torch.bfloat16), ((8, 16, 5120), torch.bfloat16),
+    ((3, 999, 384), torch.float32), ((8, 56, 33), torch.float32),
+    ((2, 10, 3), torch.bfloat16)])
+@pytest.mark.parametrize("method", ["oneshot", "ring"])
+def test_reduce_scatter_kernels_are_bit_identical(cuda, shape, dtype,
+                                                  method):
+    """Both reduce-scatters bit for bit their plain versions (pure adds in
+    JAX's fixed orders: the ring rounds at every hop), every staging slot
+    what was pushed, one launch each."""
+    world = shape[0]
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = _randn(gen, *shape, dtype=dtype)
+    _build.reset_counts()
+    if method == "oneshot":
+        got, staging = trsc.oneshot_reduce_scatter_cuda(x)
+        want, want_staging = trsc.oneshot_reduce_scatter_ref(
+            x, return_staging=True)
+        assert trsc.ONESHOT_RS.launches == 1
+    else:
+        got, staging = trsc.ring_reduce_scatter_cuda(x)
+        want, want_staging = trsc.ring_reduce_scatter_ref(
+            x, return_staging=True)
+        assert trsc.RING_RS.launches == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(staging, want_staging)
+    assert torch.equal(trsc.reduce_scatter(x, world=world, method=method),
+                       got.reshape(-1, *shape[2:]))
+
+
+@pytest.mark.parametrize("method", ["oneshot", "ring"])
+def test_reduce_scatter_kernels_wait_for_delayed_producers(cuda, method):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    x = _randn(gen, 8, 64, 384, dtype=torch.bfloat16)
+    run = (trsc.oneshot_reduce_scatter_cuda if method == "oneshot"
+           else trsc.ring_reduce_scatter_cuda)
+    want, want_staging = run(x)
+    staging = torch.full_like(want_staging, float("nan"))
+    got, _ = run(x, staging=staging, producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(staging, want_staging)
+
+
+def _grids(gen, world, E, cap, d, dtype, cuda, exact=False):
+    """Capacity grids with ragged counts (empty slots zero, some experts
+    empty); ``exact``: one small integer per live row."""
+    counts = torch.randint(0, cap + 1, (world, E), generator=gen,
+                           device=cuda)
+    counts[:, ::3] = 0
+    live = torch.arange(cap, device=cuda) < counts[..., None]
+    if exact:
+        g = _exact_operands(gen, world, E * cap, d, 1, torch.float32,
+                            cuda)[0].reshape(world, E, cap, d)
+    else:
+        g = _randn(gen, world, E, cap, d, dtype=torch.float32)
+    return (g * live[..., None]).to(dtype)
+
+
+@pytest.mark.parametrize("world,E,cap,d,f,dtype", [
+    (8, 16, 8, 256, 96, torch.bfloat16),      # decode-like, f 96 < tile
+    (8, 4, 128, 128, 96, torch.bfloat16),     # one source a row tile
+    (4, 6, 40, 72, 136, torch.bfloat16),      # rows span sources
+    (3, 5, 21, 33, 77, torch.float32)])       # ragged, unvectorised
+def test_ag_group_gemm_kernel_matches_plain(cuda, world, E, cap, d, f,
+                                            dtype):
+    gen = torch.Generator(device=cuda).manual_seed(cap * d)
+    grids = _grids(gen, world, E, cap, d, dtype, cuda)
+    w = _randn(gen, world, E, d, f, dtype=dtype) * d ** -0.5
+    _build.reset_counts()
+    got, staging = tmo.ag_group_gemm_cuda(grids, w)
+    torch.cuda.synchronize()
+    assert tmo.AG_GROUP_GEMM.launches == 1
+    want, want_staging = tmo.ag_group_gemm_ref(grids, w, return_staging=True)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(staging, want_staging)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("delay_ns", [0, 1_000_000])
+def test_ag_group_gemm_is_bit_identical_on_exact_products(cuda, dtype,
+                                                          delay_ns):
+    """Exact products: bit for bit the plain version, with every producer
+    held back 1 ms behind NaN staging or not."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    world, E, cap, d, f = 8, 12, 24, 128, 96
+    grids = _grids(gen, world, E, cap, d, dtype, cuda, exact=True)
+    w = _randn(gen, world, E, d, f, dtype=torch.bfloat16).to(dtype)
+    staging = torch.full((world, E, world, cap, d), float("nan"),
+                         dtype=dtype, device=cuda)
+    got, _ = tmo.ag_group_gemm_cuda(grids, w, staging=staging,
+                                    producer_delay_ns=delay_ns)
+    torch.cuda.synchronize()
+    want, want_staging = tmo.ag_group_gemm_ref(grids, w, return_staging=True)
+    assert torch.equal(got, want)
+    assert torch.equal(staging, want_staging)
+
+
+@pytest.mark.parametrize("world,E,cap,f,d,dtype", [
+    (8, 16, 8, 96, 512, torch.bfloat16),
+    (8, 3, 128, 96, 768, torch.bfloat16),
+    (4, 5, 40, 72, 136, torch.bfloat16),
+    (3, 4, 21, 33, 77, torch.float32)])
+def test_group_gemm_rs_kernel_matches_plain(cuda, world, E, cap, f, d,
+                                            dtype):
+    gen = torch.Generator(device=cuda).manual_seed(cap * f)
+    act = _randn(gen, world, E, world * cap, f, dtype=dtype)
+    w = _randn(gen, world, E, f, d, dtype=dtype) * f ** -0.5
+    _build.reset_counts()
+    got = tmo.group_gemm_rs_device(act, w, world=world, capacity=cap)
+    torch.cuda.synchronize()
+    assert tmo.GROUP_GEMM_RS.launches == 1
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, tmo.group_gemm_rs_ref(act, w), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("delay_ns", [0, 1_000_000])
+def test_group_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns):
+    """Exact partials: the fold (remote partials rounded to the output
+    dtype, own f32, src = 0 .. world - 1) is the plain fold's bits, with the
+    product tiles held back 1 ms behind NaN staging or not, and every slot
+    holds the pushed partial."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    world, E, cap, f, d = 8, 6, 16, 96, 320
+    act = _exact_operands(gen, world, E * world * cap, f, d, dtype,
+                          cuda)[0].reshape(world, E, world * cap, f)
+    w = _randn(gen, world, E, f, d, dtype=torch.bfloat16).to(dtype)
+    staging = torch.full((world, world - 1, E, cap, d), float("nan"),
+                         dtype=dtype, device=cuda)
+    got, _ = tmo.group_gemm_rs_cuda(act, w, staging=staging,
+                                    producer_delay_ns=delay_ns)
+    torch.cuda.synchronize()
+    want, want_staging = tmo.group_gemm_rs_ref(act, w, return_staging=True)
+    assert torch.equal(got, want)
+    assert torch.equal(staging, want_staging)
+
+
+def test_ag_moe_mlp_device_matches_plain_on_card(cuda):
+    """The pipeline at world 8 through both kernels (one launch each, the
+    routing in one call) against the plain pipeline on the card: bf16
+    tolerance, drop counts equal, at a capacity that drops."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    world, m, k, d, f, E = 8, 24, 4, 256, 768, 16
+    x = _randn(gen, world, m, d, dtype=torch.bfloat16)
+    ids = torch.stack([torch.randperm(E, generator=gen, device=cuda)[:k]
+                       for _ in range(world * m)]).reshape(world, m, k)
+    wts = torch.rand(world, m, k, generator=gen, device=cuda)
+    wu = World(world).split(_randn(gen, E, d, f, dtype=torch.bfloat16)
+                            * d ** -0.5, 2)
+    wd = World(world).split(_randn(gen, E, f, d, dtype=torch.bfloat16)
+                            * f ** -0.5, 1)
+    for cap in (m, 4):
+        _build.reset_counts()
+        out, n_dropped = tmo.ag_moe_mlp_device(x, ids, wts, wu, wd,
+                                               world=world, n_experts=E,
+                                               capacity=cap)
+        torch.cuda.synchronize()
+        assert (tmo.AG_GROUP_GEMM.launches, tmo.GROUP_GEMM_RS.launches) == \
+            (1, 1)
+        want, want_dropped = tmo.ag_moe_mlp_ref(x, ids, wts, wu, wd,
+                                                world=world, n_experts=E,
+                                                capacity=cap)
+        assert torch.equal(n_dropped, want_dropped)
+        assert bool((n_dropped > 0).any()) == (cap < m)
+        torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)
+
+
+def test_epoch_wrap_across_the_new_kernels(cuda):
+    """The epoch counter crosses its wrap between calls of the four new
+    kernels, each with its producers held back 1 ms behind NaN staging: no
+    flag an earlier call raised near 2**31 reads as raised to a later one,
+    so every result is its plain version's bits."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    x = _randn(gen, 8, 64, 256, dtype=torch.bfloat16)
+    grids = _grids(gen, 8, 4, 16, 128, torch.bfloat16, cuda, exact=True)
+    w_up = _randn(gen, 8, 4, 128, 96, dtype=torch.bfloat16)
+    act = _exact_operands(gen, 8, 4 * 8 * 16, 96, 1, torch.bfloat16,
+                          cuda)[0].reshape(8, 4, 8 * 16, 96)
+    w_dn = _randn(gen, 8, 4, 96, 256, dtype=torch.bfloat16)
+    runs = [
+        (trsc.oneshot_reduce_scatter_cuda, (x,),
+         trsc.oneshot_reduce_scatter_ref(x, return_staging=True)),
+        (trsc.ring_reduce_scatter_cuda, (x,),
+         trsc.ring_reduce_scatter_ref(x, return_staging=True)),
+        (tmo.ag_group_gemm_cuda, (grids, w_up),
+         tmo.ag_group_gemm_ref(grids, w_up, return_staging=True)),
+        (tmo.group_gemm_rs_cuda, (act, w_dn),
+         tmo.group_gemm_rs_ref(act, w_dn, return_staging=True))]
+    _signal._EPOCH[x.device] = 2 ** 31 - 3
+    for _ in range(2):
+        for run, args, (want, want_staging) in runs:
+            staging = torch.full_like(want_staging, float("nan"))
+            got, _ = run(*args, staging=staging, producer_delay_ns=1_000_000)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(staging,
+                                                          want_staging)
+    assert _signal._EPOCH[x.device] == 6   # 2**31 - 2, 2**31 - 1, 1 .. 6

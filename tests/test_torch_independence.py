@@ -48,7 +48,8 @@ def test_scan_sees_the_whole_port():
                 "kernels/gemm_reduce_scatter", "runtime/perf_model",
                 "kernels/allreduce", "kernels/ep_all_to_all",
                 "kernels/notify_wait", "runtime/mesh",
-                "layers/ep_a2a_layer"):
+                "layers/ep_a2a_layer", "kernels/moe_overlap",
+                "kernels/reduce_scatter"):
         assert f"triton_distributed_tpu_torch/{mod}.py" in names
 
 

@@ -18,8 +18,10 @@ to find:
                           EPAll2AllLayer (the expert-parallel exchange)
   kernels/                wrappers of the hand-written CUDA kernels in
                           ``csrc/`` (matmuls, attention, the grouped GEMM,
-                          the collectives and the multi-rank kernels), each
-                          beside its plain PyTorch version; MoE routing
+                          the collectives and the multi-rank kernels: the
+                          reduce-scatter, and the MoE-TP AG-GroupGEMM and
+                          GroupGEMM-RS of ``moe_overlap``), each beside its
+                          plain PyTorch version; MoE routing
                           (``moe_utils``)
   kernels/_build.py       nvcc -> one shared library with a C interface,
                           loaded with ctypes at first use

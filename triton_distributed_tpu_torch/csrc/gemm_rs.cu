@@ -43,154 +43,23 @@
 //   fold waits on belongs to a running block: no deadlock, whatever the
 //   dispatch order. delay_ns holds every product tile back before it
 //   releases its flag (a test of the waits: the result must not change).
-#include "gemm_tile.cuh"
-#include "language.cuh"
-#include "vec.cuh"
+//   The items are gemm_rs.cuh's, with one expert.
+#include "gemm_rs.cuh"
 
 namespace {
 
-namespace lang = tdt::lang;
+using tdt::gemm::bf16;
 using tdt::gemm::TileOf;
-
-// Shapes of one call: per rank a (M, k), b (k, N); segments of m rows.
-struct Geometry {
-  int world, M, m, k, N;
-  int tiles_m, tiles_n;  // product tiles of one rank's (M, N)
-  int fold_m;            // fold row tiles of one segment (TileOf::M rows)
-};
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(TileOf<T>::threads)
     gemm_rs_kernel(const T* __restrict__ A, const T* __restrict__ B,
                    T* __restrict__ out, T* staging, float* own,
-                   uint32_t* flags, int* ticket, uint32_t epoch, Geometry g,
-                   unsigned long long delay_ns) {
-  using Tile = TileOf<T>;
+                   uint32_t* flags, int* ticket, uint32_t epoch,
+                   tdt::rs::Geometry g, unsigned long long delay_ns) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int W = g.world;
-  const int per_rank = g.tiles_m * g.tiles_n;
-  const int products = W * per_rank;
-  const int total = products + W * g.fold_m * g.tiles_n;
-  const size_t seg = (size_t)g.m * g.N;  // elements of one segment
-  for (;;) {
-    const int t = tdt::gemm::take_ticket(ticket);
-    if (t >= total) return;
-    if (t < products) {
-      const int r = t / per_rank, j = (t / g.tiles_n) % g.tiles_m,
-                nt = t % g.tiles_n;
-      const int mt = (((r + 1) % W) * g.m / Tile::M + j) % g.tiles_m;
-      const int m0 = mt * Tile::M, n0 = nt * Tile::N;
-      tdt::gemm::product_tile<T, VEC>(
-          A + (size_t)r * g.M * g.k, g.k, B + (size_t)r * g.k * g.N, g.N,
-          g.M, g.N, g.k, m0, n0, smem, [&](int gr, int gc, float v) {
-            if (gr >= g.M || gc >= g.N) return;
-            const int dst = gr / g.m;
-            const size_t e = (size_t)(gr % g.m) * g.N + gc;
-            if (dst == r) {
-              own[(size_t)r * seg + e] = v;
-            } else {
-              const int slot = r - (r > dst);  // common.peer_slot(r, dst)
-              staging[((size_t)dst * (W - 1) + slot) * seg + e] =
-                  tdt::from_f32<T>(v);
-            }
-          });
-      lang::sleep_ns(delay_ns);
-      __syncthreads();  // every thread's stores precede the release
-      if (threadIdx.x == 0) {
-        __threadfence();
-        lang::notify(flags + ((size_t)r * g.tiles_m + mt) * g.tiles_n + nt,
-                     epoch);
-      }
-      continue;
-    }
-    const int u = t - products;
-    const int d = u / (g.fold_m * g.tiles_n);
-    const int ft = (u / g.tiles_n) % g.fold_m, nt = u % g.tiles_n;
-    const int i0 = ft * Tile::M, i1 = min(i0 + Tile::M, g.m);
-    const int n0 = nt * Tile::N, n1 = min(n0 + Tile::N, g.N);
-    if (threadIdx.x == 0) {
-      const int mt0 = (d * g.m + i0) / Tile::M;
-      const int mt1 = (d * g.m + i1 - 1) / Tile::M;
-      for (int src = 0; src < W; ++src)
-        for (int mt = mt0; mt <= mt1; ++mt)
-          lang::wait(flags + ((size_t)src * g.tiles_m + mt) * g.tiles_n + nt,
-                     epoch);
-    }
-    __syncthreads();
-    lang::consume_token();
-    // VEC: N a multiple of 8, so every tile's columns split into 16-byte
-    // vectors of T (P elements); each thread folds P outputs at a time.
-    constexpr int P = VEC ? 16 / sizeof(T) : 1;
-    const int width = (n1 - n0) / P;
-    for (int q = threadIdx.x; q < (i1 - i0) * width; q += blockDim.x) {
-      const size_t e = (size_t)(i0 + q / width) * g.N + n0 + q % width * P;
-      float acc[P], f[P];
-#pragma unroll
-      for (int k = 0; k < P; ++k) acc[k] = 0.f;
-      const float* mine = own + (size_t)d * seg + e;
-      for (int src = 0; src < W; ++src) {
-        if (src == d) {
-#pragma unroll
-          for (int k = 0; k < P; k += 4) {
-            if constexpr (VEC) {
-              const float4 v =
-                  __ldcg(reinterpret_cast<const float4*>(mine + k));
-              f[k] = v.x;
-              f[k + 1] = v.y;
-              f[k + 2] = v.z;
-              f[k + 3] = v.w;
-            } else {
-              f[0] = __ldcg(mine);
-            }
-          }
-        } else {
-          const T* pushed =
-              staging + ((size_t)d * (W - 1) + src - (src > d)) * seg + e;
-          if constexpr (VEC)
-            tdt::vec::load_vec_cg(pushed, f);
-          else
-            f[0] = tdt::vec::load_cg(pushed);
-        }
-#pragma unroll
-        for (int k = 0; k < P; ++k) acc[k] += f[k];
-      }
-      if constexpr (VEC)
-        tdt::vec::store_vec(out + (size_t)d * seg + e, acc);
-      else
-        out[(size_t)d * seg + e] = tdt::from_f32<T>(acc[0]);
-    }
-    // take_ticket starts at a barrier: nothing here is read again.
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* a, const void* b, void* out, void* staging,
-                   void* own, void* flags, void* ticket, unsigned epoch,
-                   Geometry g, unsigned long long delay_ns, cudaStream_t s) {
-  using namespace tdt::gemm;
-  using Tile = TileOf<T>;
-  const bool vec = g.k % 8 == 0 && g.N % 8 == 0 && aligned16(a) &&
-                   aligned16(b) && aligned16(out) && aligned16(staging) &&
-                   aligned16(own);
-  auto kernel = vec ? gemm_rs_kernel<T, true> : gemm_rs_kernel<T, false>;
-  cudaError_t err = cudaSuccess;
-  if (Tile::smem > 0)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::smem);
-  const long long total = (long long)g.tiles_m * g.world * g.tiles_n +
-                          (long long)g.world * g.fold_m * g.tiles_n;
-  unsigned blocks = 0;
-  if (err == cudaSuccess)
-    err = persistent_blocks(kernel, Tile::threads, Tile::smem, total,
-                            &blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ticket, 0, sizeof(int), s);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, Tile::threads, Tile::smem, s>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<T*>(out), static_cast<T*>(staging),
-      static_cast<float*>(own), static_cast<uint32_t*>(flags),
-      static_cast<int*>(ticket), epoch, g, delay_ns);
-  return cudaGetLastError();
+  tdt::rs::run_items<T, VEC>(A, B, out, staging, own, flags, ticket, epoch,
+                             g, delay_ns, smem);
 }
 
 }  // namespace
@@ -205,30 +74,20 @@ extern "C" int tdt_gemm_rs(const void* a, const void* b, void* out,
                            void* ticket, unsigned epoch, long long world,
                            long long M, long long k, long long N, int dtype,
                            unsigned long long delay_ns, void* stream) {
-  using namespace tdt::gemm;
-  if (world < 2 || M <= 0 || M % world || k <= 0 || N <= 0 ||
-      M > INT32_MAX || k > INT32_MAX || N > INT32_MAX || !staging || !own)
-    return cudaErrorInvalidValue;
-  const int tm = dtype == tdt::kF32 ? TileOf<float>::M : TileOf<bf16>::M;
-  const int tn = dtype == tdt::kF32 ? TileOf<float>::N : TileOf<bf16>::N;
-  Geometry g;
-  g.world = (int)world;
-  g.M = (int)M;
-  g.m = (int)(M / world);
-  g.k = (int)k;
-  g.N = (int)N;
-  g.tiles_m = (int)((M + tm - 1) / tm);
-  g.tiles_n = (int)((N + tn - 1) / tn);
-  g.fold_m = (g.m + tm - 1) / tm;
-  if ((long long)g.tiles_m * g.world * g.tiles_n +
-          (long long)g.world * g.fold_m * g.tiles_n > INT32_MAX)
+  tdt::rs::Geometry g;
+  if (!staging || !own ||
+      !tdt::rs::make_geometry(world, 1, M, k, N, dtype, &g))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kF32)
-    return launch<float>(a, b, out, staging, own, flags, ticket, epoch, g,
-                         delay_ns, s);
+    return tdt::rs::launch<float>(gemm_rs_kernel<float, true>,
+                                  gemm_rs_kernel<float, false>, a, b, out,
+                                  staging, own, flags, ticket, epoch, g,
+                                  delay_ns, s);
   if (dtype == tdt::kBF16)
-    return launch<bf16>(a, b, out, staging, own, flags, ticket, epoch, g,
-                        delay_ns, s);
+    return tdt::rs::launch<bf16>(gemm_rs_kernel<bf16, true>,
+                                 gemm_rs_kernel<bf16, false>, a, b, out,
+                                 staging, own, flags, ticket, epoch, g,
+                                 delay_ns, s);
   return cudaErrorInvalidValue;
 }

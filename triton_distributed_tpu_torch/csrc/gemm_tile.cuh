@@ -3,7 +3,8 @@
 // shared by matmul.cu, grouped_gemm.cu, the one-chip overlap kernels
 // (ag_gemm_loopback.cu, matmul_tail_into.cu, gemm_rs_loopback.cu,
 // fused_step.cu) and, through product_tile (either dtype, an epilogue per
-// output), the multi-rank kernels (ag_gemm.cu, gemm_rs.cu).
+// output), the multi-rank kernels (ag_gemm.cuh and gemm_rs.cuh: ag_gemm.cu,
+// gemm_rs.cu, ag_group_gemm.cu, group_gemm_rs.cu).
 //
 // bf16: a BM x BN tile on the tensor cores with mma.sync m16n8k16 (f32
 //   accumulate), fragments loaded by ldmatrix (A) and ldmatrix.trans (B)
@@ -295,8 +296,8 @@ __device__ __forceinline__ void f32_tile(const float* __restrict__ A,
                });
 }
 
-// --- one tile of either dtype, for kernels templated on it (ag_gemm.cu,
-// gemm_rs.cu) ---
+// --- one tile of either dtype, for kernels templated on it (ag_gemm.cuh,
+// gemm_rs.cuh) ---
 
 template <typename T>
 struct TileOf;

@@ -42,44 +42,6 @@ namespace lang = tdt::lang;
 using tdt::vec::Vec;
 constexpr int kThreads = 256;
 
-// out[d][e0, e0 + len) = the fold of the world terms, in rank order.
-template <typename T, bool VEC>
-__device__ __forceinline__ void fold(const T* __restrict__ x,
-                                     const T* staging, T* __restrict__ out,
-                                     long long n, int world, int d,
-                                     long long e0, long long len) {
-  const T* own = x + (size_t)d * n;
-  const T* slots = staging + (size_t)d * (world - 1) * n;
-  if constexpr (VEC) {
-    constexpr int P = Vec<T>::N;
-    for (long long i = threadIdx.x; i < len / P; i += blockDim.x) {
-      const long long e = e0 + i * P;
-      float acc[P], f[P];
-      for (int src = 0; src < world; ++src) {
-        if (src == d)
-          Vec<T>::load(*reinterpret_cast<const uint4*>(own + e), f);
-        else
-          tdt::vec::load_vec_cg(slots + (src - (src > d)) * n + e, f);
-#pragma unroll
-        for (int k = 0; k < P; ++k) acc[k] = src == 0 ? f[k] : acc[k] + f[k];
-      }
-      tdt::vec::store_vec(out + (size_t)d * n + e, acc);
-    }
-  } else {
-    for (long long i = threadIdx.x; i < len; i += blockDim.x) {
-      const long long e = e0 + i;
-      float acc = 0.f;
-      for (int src = 0; src < world; ++src) {
-        const float f = src == d ? tdt::to_f32(own[e])
-                                 : tdt::vec::load_cg(
-                                       slots + (src - (src > d)) * n + e);
-        acc = src == 0 ? f : acc + f;
-      }
-      out[(size_t)d * n + e] = tdt::from_f32<T>(acc);
-    }
-  }
-}
-
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
     oneshot_ar_kernel(const T* __restrict__ x, T* staging,
@@ -111,7 +73,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     lang::consume_token();
     const long long e0 = (long long)c * chunk;
-    fold<T, VEC>(x, staging, out, n, world, d, e0, min(chunk, n - e0));
+    tdt::vec::fold_slots<T, VEC>(x + (size_t)d * n + e0,
+                                 staging + (size_t)d * peers * n + e0, n,
+                                 out + (size_t)d * n + e0, world, d,
+                                 min(chunk, n - e0));
     // take_ticket starts at a barrier: nothing here is read again.
   }
 }

@@ -44,37 +44,9 @@
 namespace {
 
 namespace lang = tdt::lang;
+using tdt::vec::add_rows;
 using tdt::vec::Vec;
 constexpr int kThreads = 256;
-
-// dst[0, len) = round(a + b) (b may be null: a copied), a read directly
-// (x) or through L2 only (a piece another block wrote), b through L2 only.
-template <typename T, bool VEC>
-__device__ __forceinline__ void add_rows(T* dst, const T* a, bool a_cg,
-                                         const T* b, long long len) {
-  if constexpr (VEC) {
-    constexpr int P = Vec<T>::N;
-    for (long long i = threadIdx.x; i < len / P; i += blockDim.x) {
-      float acc[P], f[P];
-      if (a_cg)
-        tdt::vec::load_vec_cg(a + i * P, acc);
-      else
-        Vec<T>::load(*reinterpret_cast<const uint4*>(a + i * P), acc);
-      if (b) {
-        tdt::vec::load_vec_cg(b + i * P, f);
-#pragma unroll
-        for (int k = 0; k < P; ++k) acc[k] += f[k];
-      }
-      tdt::vec::store_vec(dst + i * P, acc);
-    }
-  } else {
-    for (long long i = threadIdx.x; i < len; i += blockDim.x) {
-      float acc = a_cg ? tdt::vec::load_cg(a + i) : tdt::to_f32(a[i]);
-      if (b) acc += tdt::vec::load_cg(b + i);
-      dst[i] = tdt::from_f32<T>(acc);
-    }
-  }
-}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)

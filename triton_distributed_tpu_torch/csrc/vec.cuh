@@ -1,6 +1,8 @@
 // 16-byte vectors of f32 or bf16 elements, converted to and from f32
-// registers, and element loads through L2 only: the elementwise passes of
-// the multi-rank all-reduces (oneshot_ar.cu, twoshot_ar.cu). Data another
+// registers, and element loads through L2 only; and the two elementwise
+// passes built on them: the fixed-order fold of staged slots (oneshot_ar.cu,
+// oneshot_rs.cu) and the add-and-round of a ring hop (twoshot_ar.cu,
+// ring_rs.cu). Data another
 // block of the same launch wrote is loaded through L2 only (ld.global.cg),
 // since the loading SM's L1 is not coherent with the writer's.
 #pragma once
@@ -65,6 +67,77 @@ __device__ __forceinline__ void load_vec_cg(const T* p, float* f) {
 template <typename T>
 __device__ __forceinline__ void store_vec(T* p, const float* f) {
   *reinterpret_cast<uint4*>(p) = Vec<T>::store(f);
+}
+
+// out[0, len) = cast(the f32 sum over src = 0 .. world - 1, in that order,
+// of own[0, len) for src == d and slots[(src - (src > d)) * slot_stride +
+// 0, len) for every other src): common.reduce_slots_tiled's order. own is
+// read directly (an input of the call), the slots through L2 only. Every
+// thread of the block calls it; VEC needs len, slot_stride and the
+// pointers in whole 16-byte vectors.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fold_slots(const T* __restrict__ own,
+                                           const T* slots, size_t slot_stride,
+                                           T* __restrict__ out, int world,
+                                           int d, long long len) {
+  if constexpr (VEC) {
+    constexpr int P = Vec<T>::N;
+    for (long long i = threadIdx.x; i < len / P; i += blockDim.x) {
+      const long long e = i * P;
+      float acc[P], f[P];
+      for (int src = 0; src < world; ++src) {
+        if (src == d)
+          Vec<T>::load(*reinterpret_cast<const uint4*>(own + e), f);
+        else
+          load_vec_cg(slots + (src - (src > d)) * slot_stride + e, f);
+#pragma unroll
+        for (int k = 0; k < P; ++k) acc[k] = src == 0 ? f[k] : acc[k] + f[k];
+      }
+      store_vec(out + e, acc);
+    }
+  } else {
+    for (long long e = threadIdx.x; e < len; e += blockDim.x) {
+      float acc = 0.f;
+      for (int src = 0; src < world; ++src) {
+        const float f =
+            src == d ? to_f32(own[e])
+                     : load_cg(slots + (src - (src > d)) * slot_stride + e);
+        acc = src == 0 ? f : acc + f;
+      }
+      out[e] = from_f32<T>(acc);
+    }
+  }
+}
+
+// dst[0, len) = round(a + b) (b may be null: a copied), a read directly
+// (an input of the call) or through L2 only (a_cg: a piece another block
+// wrote), b through L2 only: common.reduce_rows_tiled's hop. Every thread
+// of the block calls it.
+template <typename T, bool VEC>
+__device__ __forceinline__ void add_rows(T* dst, const T* a, bool a_cg,
+                                         const T* b, long long len) {
+  if constexpr (VEC) {
+    constexpr int P = Vec<T>::N;
+    for (long long i = threadIdx.x; i < len / P; i += blockDim.x) {
+      float acc[P], f[P];
+      if (a_cg)
+        load_vec_cg(a + i * P, acc);
+      else
+        Vec<T>::load(*reinterpret_cast<const uint4*>(a + i * P), acc);
+      if (b) {
+        load_vec_cg(b + i * P, f);
+#pragma unroll
+        for (int k = 0; k < P; ++k) acc[k] += f[k];
+      }
+      store_vec(dst + i * P, acc);
+    }
+  } else {
+    for (long long i = threadIdx.x; i < len; i += blockDim.x) {
+      float acc = a_cg ? load_cg(a + i) : to_f32(a[i]);
+      if (b) acc += load_cg(b + i);
+      dst[i] = from_f32<T>(acc);
+    }
+  }
 }
 
 }  // namespace vec

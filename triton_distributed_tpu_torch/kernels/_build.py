@@ -104,6 +104,20 @@ SIGNATURES = {
     # producer delay (ns), stream
     "tdt_ep_a2a": [P, P, P, P, I64, P, P, P, P, P, U32, I64, I64, I64, U64,
                    P],
+    # x, staging, out, flags, ticket, epoch, world, segment elements, chunk
+    # elements, dtype, producer delay (ns), stream
+    "tdt_oneshot_rs": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
+    # x, staging, out, flags, ticket, epoch, world, chunk elements, piece
+    # elements, dtype, producer delay (ns), stream
+    "tdt_ring_rs": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
+    # grids, staging, w, out, flags, ticket, epoch, world, E, cap, d, f,
+    # experts per producer chunk, dtype, producer delay (ns), stream
+    "tdt_ag_group_gemm": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
+                          I64, I32, U64, P],
+    # act, w, out, staging, own (f32), flags, ticket, epoch, world, E, cap,
+    # f, d, dtype, producer delay (ns), stream
+    "tdt_group_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
+                          I32, U64, P],
 }
 
 

@@ -224,6 +224,32 @@ def route_to_experts(x, topk_ids, *, n_experts: int, capacity: int):
     return grid, slot.reshape(n, k), kept.reshape(n, k), n_dropped, counts
 
 
+def route_rank_stack(x, topk_ids, *, n_experts: int, capacity: int):
+    """``route_to_experts`` of every rank of a stack in one call.
+
+    x (world, m, d), topk_ids (world, m, k). Rank r's ids are offset by
+    ``r * n_experts`` and all pairs sorted into ``world * n_experts``
+    buckets, so the (world * E, capacity, d) grid is the (world, E,
+    capacity, d) stack of every rank's grid, and each rank's slots are the
+    rank-by-rank ones (an id outside [0, ``n_experts``) is never kept and
+    not counted as dropped). Returns (grid (world, E, capacity, d); slot,
+    kept (world, m, k); n_dropped (world,) int32; counts (world, E)
+    int32)."""
+    world, m, k = topk_ids.shape
+    base = torch.arange(world, device=topk_ids.device).reshape(world, 1, 1)
+    in_range = (topk_ids >= 0) & (topk_ids < n_experts)
+    keys = torch.where(in_range, topk_ids + base * n_experts,
+                       world * n_experts)
+    grid, slot, kept, _, counts = route_to_experts(
+        x.reshape(world * m, -1), keys.reshape(world * m, k),
+        n_experts=world * n_experts, capacity=capacity)
+    n_dropped = (in_range & ~kept.reshape(world, m, k)).reshape(
+        world, -1).sum(dim=1, dtype=torch.int32)
+    return (grid.reshape(world, n_experts, capacity, -1),
+            slot.reshape(world, m, k), kept.reshape(world, m, k), n_dropped,
+            counts.reshape(world, n_experts))
+
+
 def combine_from_experts(out_grid, topk_ids, topk_weights, slot, kept):
     """Inverse of ``route_to_experts`` after expert compute: each pair's row
     of the (E, capacity, d) grid, weighted by its topk probability, the k

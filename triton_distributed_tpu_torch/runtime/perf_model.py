@@ -6,9 +6,11 @@ the port's kernels need: ``Hardware``, ``detect_hardware``,
 estimates that pick a method (``est_oneshot_all_reduce`` :204,
 ``est_twoshot_all_reduce`` :214, ``wire_bytes_all_reduce`` :253, with the
 ring terms they build on), the all-to-all's ``wire_bytes_all_to_all``
-(:263) and ``est_push_all_gather`` (:160), and the bytes and operations that the
-collective loopbacks and the multi-rank kernels must move or do (the
-least, for their bounds). The
+(:263) and ``est_push_all_gather`` (:160), the reduce-scatter's
+``est_oneshot_reduce_scatter`` (:193) and ``wire_bytes_reduce_scatter``
+(:246) with ``wire_bytes_all_gather`` (:239), and the bytes and operations
+that the collective loopbacks and the multi-rank kernels must move or do
+(the least, for their bounds). The
 table holds published data-sheet numbers of the cards the port runs on. An
 unknown card raises: there is no fallback row, and no TPU row at all.
 
@@ -176,6 +178,18 @@ def est_ring_reduce_scatter(nbytes: int, world: int,
     return (world - 1) * per_hop
 
 
+def est_oneshot_reduce_scatter(nbytes: int, world: int,
+                               hw: Hardware | None = None) -> float:
+    """One-shot reduce-scatter (JAX :193): every rank pushes its world - 1
+    foreign chunks (nbytes / world each) at once, then folds world chunks
+    locally."""
+    hw = hw or detect_hardware()
+    chunk = nbytes / world
+    reduce_ = world * chunk * 2 / hw.hbm_bw
+    return (_push_bandwidth_term(chunk, world, hw) + hw.hop_lat
+            + reduce_ + 2 * hw.hop_lat)
+
+
 def est_oneshot_all_reduce(nbytes: int, world: int,
                            hw: Hardware | None = None) -> float:
     """One-shot all-reduce (JAX :204): every rank pushes its whole buffer
@@ -203,6 +217,19 @@ def wire_bytes_all_reduce(nbytes: int, world: int,
     if method in ("one_shot", "oneshot"):
         return (world - 1) * nbytes
     return 2 * (world - 1) * nbytes // world
+
+
+def wire_bytes_all_gather(shard_nbytes: int, world: int) -> int:
+    """Bytes each rank moves in an allgather of one ``shard_nbytes`` shard
+    (JAX :239): the other world - 1 shards, once each."""
+    return (world - 1) * shard_nbytes
+
+
+def wire_bytes_reduce_scatter(per_dev_nbytes: int, world: int) -> int:
+    """Bytes each rank sends in a reduce-scatter of its whole
+    ``per_dev_nbytes`` contribution (JAX :246): world - 1 chunks of
+    per_dev_nbytes / world, one-shot and ring alike."""
+    return (world - 1) * per_dev_nbytes // world
 
 
 def wire_bytes_all_to_all(per_dev_nbytes: int, world: int) -> int:
@@ -254,3 +281,43 @@ def all_reduce_bytes(world: int, nbytes: int) -> int:
     every rank's buffer read once and its copy of the sum written once
     (staging and ring pushes are scratch)."""
     return 2 * world * nbytes
+
+
+def group_gemm_flops(world: int, rows: int, d: int, f_local: int) -> int:
+    """Operations of AG-GroupGEMM or GroupGEMM-RS over ``world`` ranks:
+    every rank multiplies ``rows`` gathered grid rows (the sum over every
+    source and expert; ``world * E * cap`` for whole grids, fewer where
+    only the rows the routing filled are counted) by its (d, f_local)
+    shard of their expert: 2 world rows d f_local, which is
+    ``2 world world E cap d f_local`` for whole grids."""
+    return 2 * world * rows * d * f_local
+
+
+def ag_group_gemm_bytes(world: int, E: int, cap: int, d: int, f_local: int,
+                        itemsize: int, rows: int | None = None) -> int:
+    """Least bytes of AG-GroupGEMM: every source's (E, cap, d) grid read
+    once (its ``rows`` filled rows where given: an empty slot is known to
+    be zero), every rank's (E, d, f_local) weights read once, every rank's
+    (E, world cap, f_local) output written once (the gather's staging is
+    scratch)."""
+    rows = world * E * cap if rows is None else rows
+    return (rows * d + world * E * d * f_local
+            + world * E * world * cap * f_local) * itemsize
+
+
+def group_gemm_rs_bytes(world: int, E: int, cap: int, d: int, f_local: int,
+                        itemsize: int, rows: int | None = None) -> int:
+    """Least bytes of GroupGEMM-RS: every rank's (E, world cap, f_local)
+    activations read once (their ``rows`` filled rows per rank where
+    given), every rank's (E, f_local, d) weights read once, every rank's
+    (E, cap, d) segment written once (the pushed partials are scratch)."""
+    rows = world * E * cap if rows is None else rows
+    return (world * rows * f_local + world * E * f_local * d
+            + world * E * cap * d) * itemsize
+
+
+def reduce_scatter_bytes(world: int, nbytes: int) -> int:
+    """Least bytes of a reduce-scatter of one ``nbytes`` contribution per
+    rank: every rank's contribution read once and its nbytes / world
+    segment of the sum written once."""
+    return world * nbytes + nbytes
