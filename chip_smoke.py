@@ -150,7 +150,23 @@ script exits non-zero without its result line:
    pipeline on the card and the dense f32 golden with phase 3's bars) and
    the host ``reduce_scatter`` at both Qwen3-32B shapes, AUTO and ring;
    the four kernels' times (kernel, device alone, plain, library call,
-   bound) and the peak memory.
+   bound) and the peak memory;
+10. sequence parallelism at world 8 at Qwen3-32B's attention width
+   (64 query heads, 8 kv heads, dh 128), bf16: the ring and direct-push
+   allgathers (``csrc/ring_ag.cu``, ``a2a_ag.cu``) bit for bit their plain
+   version at the TP = 8 activations (8, 1,024, 5,120) and (8, 16, 5,120),
+   also with 1 ms-delayed producers behind a NaN output; the LL allgather
+   (``csrc/ll_allgather.cu``) over five epochs and a restart on one
+   NaN-poisoned staging, bit for bit, the other parity untouched; then the
+   path with exact launch counts: the host ``all_gather`` (AUTO),
+   ``AllGatherLayer`` at the decode activation with each method,
+   ``SpGQAFlashDecodeAttention`` (B 4 over a 32,768-position cache, kv_len
+   30,000 and 20,000, once over the ring and three steps over LL) and
+   ``sp_ag_attention_device`` (``csrc/sp_ag_attn.cu``, 8 x 4,096 tokens,
+   causal), each held against its plain pipeline and an f32 dense golden
+   with phase 3's bars; a smaller non-causal prefill holds the lse; the
+   prefill again with 1 ms-delayed producers behind NaN staging; the four
+   kernels' times.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -319,8 +335,29 @@ MT_RS_PREFILL, MT_RS_DECODE, MT_RS_F32 = (8192, 5120), (128, 5120), (1000,
 MT_GOLDEN_TOKENS = 256             # prefill tokens held against the golden
 MT_KERNELS = ("ag_group_gemm", "group_gemm_rs", "oneshot_rs", "ring_rs")
 # Phases 5-9's kernels: the world-1 serving paths launch none of them.
+# Phase 10: sequence parallelism at world 8 on one card, at Qwen3-32B's
+# attention width (models/config.py:67: 64 query heads, 8 kv heads, head_dim
+# 128). The allgathers at the TP = 8 activations, the counterpart of phase
+# 9's reduce-scatter: a rank's (1,024, 5,120) prefill shard and (16, 5,120)
+# decode one. SP decode: B = 4 (phase 3's decode batch) over a global cache
+# of 32,768 positions (Qwen3-32B's native context), 4,096 a rank, at kv_len
+# 30,000 and 20,000 (ranks 5-7 then own nothing); its partials are 4 x 64
+# rows of decode_partial_feat(128) = 256 f32 a rank. SP prefill: 8 x 4,096
+# = 32,768 tokens, causal; the golden covers SP_GOLDEN_HEADS; the lse is
+# held on a non-causal run of SP_LSE_M rows a rank.
+SP_WORLD = 8
+SP_HQ, SP_HKV, SP_DH = 64, 8, 128
+SP_AG = {"prefill": (1024, 5120), "decode": (16, 5120)}
+SP_B, SP_CTX = 4, 32768
+SP_KV_LENS = (30000, 20000)
+SP_LL_STEPS = 3
+SP_LL_EPOCHS = (0, 1, 2, 3, 4, 0)       # five epochs, then a restart
+SP_M = 4096
+SP_GOLDEN_HEADS = (0, 37)
+SP_LSE_M = 512
+SP_KERNELS = ("ring_ag", "a2a_ag", "ll_allgather", "sp_ag_attn")
 NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS
-                           + EP_KERNELS + MT_KERNELS, 0)
+                           + EP_KERNELS + MT_KERNELS + SP_KERNELS, 0)
 
 
 def say(*parts):
@@ -3211,6 +3248,377 @@ def phase_moe_tp(gen, kernels, card):
     return {k: launches[k] for k in MT_KERNELS}, err, rows
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def sp_check_ag(tag, label, x, err):
+    """Both allgathers bit for bit the plain version in every rank's copy,
+    and again with the producers held back 1 ms behind a NaN output."""
+    want = tag.all_gather_ref(x)
+    for name, run in (("ring_ag", tag.ring_all_gather_cuda),
+                      ("a2a_ag", tag.a2a_all_gather_cuda)):
+        got = run(x)
+        poison = torch.full_like(got, float("nan"))
+        slow = run(x, out=poison, producer_delay_ns=PRODUCER_DELAY_NS)
+        if not (torch.equal(got, want) and torch.equal(slow, want)):
+            raise AssertionError(f"phase 10: {name} {label}: not the plain "
+                                 f"version's bits")
+        err[name] = max(err[name], 0.0)
+        say(f"phase 10: {name} {label} {tuple(x.shape)} bf16: every rank's "
+            f"copy bit-identical to the plain version; 1 ms-delayed "
+            f"producers behind a NaN output: the same")
+        del got, poison, slow
+
+
+def sp_check_ll(tll, gen, err):
+    """The LL allgather at the SP decode partial exchange's shape over
+    five epochs and a restart on one NaN-poisoned staging: each call bit
+    for bit the plain version, writing only its parity's half (the other
+    keeps what the call before left, NaN at first); the third call with
+    1 ms-delayed pushes behind a NaN output; the flags back at 0 after
+    every call."""
+    from triton_distributed_tpu_torch.kernels import _signal
+    from triton_distributed_tpu_torch.kernels.sp_attention import (
+        decode_partial_feat)
+
+    w, rows = SP_WORLD, SP_B * SP_HQ
+    feat = decode_partial_feat(SP_DH)
+    staging = torch.full((w, 2, w - 1, rows, feat), float("nan"),
+                         device="cuda")
+    mirror = staging.clone()
+    for i, epoch in enumerate(SP_LL_EPOCHS):
+        x = randn(gen, w, rows, feat, dtype=torch.float32)
+        before = staging.clone()
+        out = (torch.full((w, w * rows, feat), float("nan"), device="cuda")
+               if i == 2 else None)
+        got, _ = tll.ll_all_gather_cuda(
+            x, staging, epoch, out=out,
+            producer_delay_ns=PRODUCER_DELAY_NS if i == 2 else 0)
+        want, mirror = tll.ll_all_gather_ref(x, mirror, epoch)
+        p = epoch % 2
+        other_kept = (torch.equal(staging[:, 1 - p].isnan(),
+                                  before[:, 1 - p].isnan())
+                      and torch.equal(staging[:, 1 - p].nan_to_num(),
+                                      before[:, 1 - p].nan_to_num()))
+        flags = _signal.flags(x.device, tll.LL_AG.name, 1)
+        if not (torch.equal(got, want) and torch.equal(staging[:, p],
+                                                       mirror[:, p])
+                and other_kept and int(flags.abs().sum()) == 0):
+            raise AssertionError(f"phase 10: ll_allgather epoch {epoch} "
+                                 f"(call {i}): not the plain version's bits, "
+                                 f"or the other parity or the flags moved")
+    err["ll_allgather"] = 0.0
+    say(f"phase 10: ll_allgather ({w}, {rows}, {feat}) f32, staging "
+        f"{tuple(staging.shape)} NaN-poisoned: epochs {list(SP_LL_EPOCHS)} "
+        f"(a restart at 0 after 4) each bit-identical to the plain version, "
+        f"the other parity untouched, the flags at 0 after every call; the "
+        f"third call with 1 ms-delayed pushes behind a NaN output: the same")
+
+
+def sp_decode_golden(q, k, v, kv_len):
+    """f32 dense GQA decode attention over the first kv_len positions of
+    the global cache (k/v (world, B, Hkv, m_kv, dh) stacked by rank)."""
+    w, B, hkv, m_kv, dh = k.shape
+    kg = k.permute(1, 2, 0, 3, 4).reshape(B, hkv, w * m_kv, dh)[:, :, :kv_len]
+    vg = v.permute(1, 2, 0, 3, 4).reshape(B, hkv, w * m_kv, dh)[:, :, :kv_len]
+    g = q.shape[1] // hkv
+    qf = q.float().reshape(B, hkv, g, dh)
+    s_ = torch.einsum("bhgd,bhsd->bhgs", qf, kg.float()) * dh ** -0.5
+    out = torch.einsum("bhgs,bhsd->bhgd", s_.softmax(-1), vg.float())
+    return out.reshape(B, q.shape[1], dh)
+
+
+def sp_prefill_golden(q, k, v, heads):
+    """f32 dense causal attention of ``heads`` over the global sequence,
+    rank by rank (q/k/v (world, H, m, dh) stacked by rank): (len(heads),
+    world m, dh)."""
+    w, _, m, dh = q.shape
+    kg = k[:, heads].permute(1, 0, 2, 3).reshape(len(heads), w * m, dh)
+    vg = v[:, heads].permute(1, 0, 2, 3).reshape(len(heads), w * m, dh)
+    out = []
+    for r in range(w):
+        n = (r + 1) * m
+        s_ = torch.einsum("hmd,hnd->hmn", q[r, heads].float(),
+                          kg[:, :n].float()) * dh ** -0.5
+        mask = (r * m + torch.arange(m, device=q.device))[:, None] >= \
+            torch.arange(n, device=q.device)[None, :]
+        s_ = s_.masked_fill(~mask, float("-inf"))
+        out.append(torch.einsum("hmn,hnd->hmd", s_.softmax(-1),
+                                vg[:, :n].float()))
+        del s_, mask
+    return torch.cat(out, dim=1)
+
+
+def phase_sp(gen, kernels, card):
+    """Phase 10: sequence parallelism at world 8 on one card. (a) The
+    allgathers and the LL allgather against their plain versions at the
+    path's shapes; (b) the path (the host ``all_gather`` AUTO,
+    ``AllGatherLayer`` with each method, ``SpGQAFlashDecodeAttention`` over
+    the ring and LL at two kv_lens, ``sp_ag_attention_device``) with exact
+    launch counts, held against the plain pipelines and the f32 goldens;
+    (c) the prefill's lse, and its producers delayed behind NaN staging;
+    (d) the four kernels' times. Returns (launches, max abs errors,
+    times)."""
+    import importlib
+
+    from triton_distributed_tpu_torch.kernels import sp_attention as tsp
+    from triton_distributed_tpu_torch.layers import (
+        AllGatherLayer, SpGQAFlashDecodeAttention)
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    tag = importlib.import_module(
+        "triton_distributed_tpu_torch.kernels.allgather")
+    tll = importlib.import_module(
+        "triton_distributed_tpu_torch.kernels.ll_allgather")
+    tlayer = importlib.import_module(
+        "triton_distributed_tpu_torch.layers.allgather_layer")
+    w = SP_WORLD
+    torch.cuda.reset_peak_memory_stats()
+    err = dict.fromkeys(SP_KERNELS, 0.0)
+
+    # (a) The allgathers and LL against their plain versions.
+    xs = {label: randn(gen, w, m, n) for label, (m, n) in SP_AG.items()}
+    for label, x in xs.items():
+        sp_check_ag(tag, label, x, err)
+    sp_check_ll(tll, gen, err)
+
+    # (b) The path, counts reset just before and read just after.
+    m_kv = SP_CTX // w
+    q_dec = randn(gen, SP_B, SP_HQ, SP_DH)
+    k_dec = randn(gen, w, SP_B, SP_HKV, m_kv, SP_DH)
+    v_dec = randn(gen, w, SP_B, SP_HKV, m_kv, SP_DH)
+    q_pre = randn(gen, w, SP_HQ, SP_M, SP_DH)
+    g = SP_HQ // SP_HKV   # the caller repeats each kv head over its group
+    k_pre = randn(gen, w, SP_HKV, SP_M, SP_DH).repeat_interleave(g, dim=1)
+    v_pre = randn(gen, w, SP_HKV, SP_M, SP_DH).repeat_interleave(g, dim=1)
+    layer = AllGatherLayer(SP_AG["decode"], torch.bfloat16, world=w)
+    sp_layer = SpGQAFlashDecodeAttention(SP_HQ, SP_HKV, SP_DH, world=w)
+    feat = tsp.decode_partial_feat(SP_DH)
+    ll_ws = tll.make_ll_staging((SP_B * SP_HQ, feat), torch.float32,
+                                world=w, name="phase10_sp_decode")
+    ll_before = ll_ws.array.clone()
+    methods = {label: tag.choose_all_gather_method(
+        w, x[0].numel() * x.element_size()).value for label, x in xs.items()}
+    nb_dec = xs["decode"][0].numel() * xs["decode"].element_size()
+    auto_method = ("ll" if tlayer._ll_wins(w, nb_dec)
+                   else tag.choose_all_gather_method(w, nb_dec).value)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    host = {label: tag.all_gather(x, world=w) for label, x in xs.items()}
+    lay = {}
+    for method in ("ring_1d", "all2all", "ll", "auto"):
+        lay[method] = layer(xs["decode"], method=method,
+                            staging=layer.staging(),
+                            epoch=layer.next_epoch())[0]
+    dec = {}
+    for kv_len in SP_KV_LENS:
+        dec[kv_len, "ring"] = sp_layer(q_dec, k_dec, v_dec, kv_len=kv_len)
+        for step in range(SP_LL_STEPS):
+            dec[kv_len, "ll", step], ll_ws.array = sp_layer(
+                q_dec, k_dec, v_dec, kv_len=kv_len, ll_staging=ll_ws.array,
+                ll_epoch=step)
+    pre = tsp.sp_ag_attention_device(q_pre, k_pre, v_pre, world=w)
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in kernels.KERNELS.items()}
+    kernel_of = {"all2all": "a2a_ag", "ring_1d": "ring_ag",
+                 "ll": "ll_allgather"}
+    expected = {k: 0 for k in kernels.KERNELS}
+    for method in (*methods.values(), "ring_1d", "all2all", "ll",
+                   auto_method):
+        expected[kernel_of[method]] += 1
+    expected["ring_ag"] += len(SP_KV_LENS)
+    expected["ll_allgather"] += len(SP_KV_LENS) * SP_LL_STEPS
+    expected["flash_decode"] = len(SP_KV_LENS) * (1 + SP_LL_STEPS)
+    expected["sp_ag_attn"] = 1
+    say(f"phase 10: path launches {launches} (expected {expected}); host "
+        f"all_gather AUTO picks {methods}; AllGatherLayer AUTO at the "
+        f"decode activation picks {auto_method} (staging and epoch given)")
+    if launches != expected:
+        raise AssertionError(f"phase 10: launch counts {launches} != "
+                             f"{expected}")
+    for label, x in xs.items():
+        nb = x[0].numel() * x.element_size()
+        if not torch.equal(host[label], x.reshape(-1, x.shape[2])):
+            raise AssertionError(f"phase 10: all_gather {label} wrong")
+        say(f"phase 10: all_gather AUTO at {tuple(x.shape)} bf16 ({nb} B a "
+            f"rank): {methods[label]} (push "
+            f"{pm.est_push_all_gather(nb, w) * 1e6:.2f} us, ring "
+            f"{pm.est_ring_all_gather(nb, w) * 1e6:.2f} us, LL "
+            f"{pm.est_ll_all_gather(nb, w) * 1e6:.2f} us by the model: "
+            f"NVLink figures published, hop latency assumed); bit-identical")
+    want = tag.all_gather_ref(xs["decode"])
+    for method, got in lay.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 10: AllGatherLayer {method} wrong")
+    say(f"phase 10: AllGatherLayer {SP_AG['decode']} bf16 with "
+        f"{list(lay)}: every rank's copy bit-identical to the plain version")
+    del host, lay, want
+    # The plain pipeline on its own staging, replaying the path's epochs.
+    plain_ws = ll_before
+    for kv_len in SP_KV_LENS:
+        ref = tsp.flash_decode_device_ref(q_dec, k_dec, v_dec, world=w,
+                                          kv_len=_local_lens(kv_len, m_kv))
+        golden = sp_decode_golden(q_dec, k_dec, v_dec, kv_len)
+        e = check_close(f"phase 10: SP decode kv_len {kv_len} ring vs the "
+                        f"plain pipeline", dec[kv_len, "ring"], ref,
+                        torch.bfloat16)
+        for step in range(SP_LL_STEPS):
+            ref_ll, plain_ws = tsp.flash_decode_device_ref(
+                q_dec, k_dec, v_dec, world=w,
+                kv_len=_local_lens(kv_len, m_kv), ll_staging=plain_ws,
+                ll_epoch=step)
+            got = dec[kv_len, "ll", step]
+            if not torch.equal(got, dec[kv_len, "ring"]):
+                raise AssertionError(f"phase 10: SP decode kv_len {kv_len} "
+                                     f"LL step {step} != the ring's")
+            if not torch.equal(ref_ll, ref):
+                raise AssertionError("phase 10: plain LL != plain ring")
+        for r in (0, w - 1):
+            if not golden_bars(f"phase 10: SP decode kv_len {kv_len} rank {r}"
+                               f" vs the f32 dense golden",
+                               dec[kv_len, "ring"][r].reshape(-1, SP_DH),
+                               golden.reshape(-1, SP_DH)):
+                raise AssertionError(f"phase 10: SP decode kv_len {kv_len} "
+                                     f"disagrees with the golden")
+        say(f"phase 10: SP decode B={SP_B} Hq={SP_HQ} Hkv={SP_HKV} over "
+            f"{SP_CTX} positions (8 x {m_kv}), kv_len {kv_len} (ranks owning "
+            f"nothing: {[r for r in range(w) if kv_len <= r * m_kv]}): max "
+            f"abs err {e:.4g} vs the plain pipeline; {SP_LL_STEPS} LL steps "
+            f"== the ring's output bit for bit")
+    del dec, ll_before, plain_ws
+    ref = tsp.sp_ag_attention_ref(q_pre, k_pre, v_pre)
+    err["sp_ag_attn"] = check_close("phase 10: sp_ag_attention vs the plain "
+                                    "version", pre, ref, torch.bfloat16)
+    del ref
+    free_card()
+    heads = list(SP_GOLDEN_HEADS)
+    golden = sp_prefill_golden(q_pre, k_pre, v_pre, heads)
+    got = pre[:, heads].permute(1, 0, 2, 3).reshape(len(heads), -1, SP_DH)
+    if not golden_bars(f"phase 10: sp_ag_attention heads {heads}, "
+                       f"{w * SP_M} rows vs the f32 dense golden",
+                       got.reshape(-1, SP_DH), golden.reshape(-1, SP_DH)):
+        raise AssertionError("phase 10: sp_ag_attention disagrees with the "
+                             "golden")
+    del golden, got
+    free_card()
+    say(f"phase 10: sp_ag_attention {w} x {SP_M} tokens, {SP_HQ} heads, dh "
+        f"{SP_DH}, causal bf16: max abs err {err['sp_ag_attn']:.4g} vs the "
+        f"plain version (bar atol = rtol = 2e-2: the kernel rounds P to "
+        f"bf16 for mma.sync, the plain version keeps f32)")
+
+    # (c) The lse on a smaller non-causal run; the delayed producers.
+    qs, ks, vs = (t[:, :8, :SP_LSE_M].contiguous()
+                  for t in (q_pre, k_pre, v_pre))
+    out, lse, _, _ = tsp.sp_ag_attention_cuda(qs, ks, vs, causal=False,
+                                              return_partials=True)
+    want, want_lse = tsp.sp_ag_attention_ref(qs, ks, vs, causal=False,
+                                             return_partials=True)
+    e = check_close("phase 10: sp_ag_attention non-causal", out, want,
+                    torch.bfloat16)
+    e_lse = (lse - want_lse).abs().max().item()
+    if not e_lse <= 1e-3:
+        raise AssertionError(f"phase 10: lse max abs err {e_lse}")
+    say(f"phase 10: sp_ag_attention non-causal {tuple(qs.shape)} with "
+        f"return_partials: out max abs err {e:.4g}, lse {e_lse:.4g} (bar "
+        f"1e-3) vs the plain version")
+    del qs, ks, vs, out, lse, want, want_lse
+    _, _, k_full, v_full = tsp.sp_ag_attention_cuda(q_pre, k_pre, v_pre)
+    staged = (torch.equal(k_full, k_pre[None].expand(w, *k_pre.shape))
+              and torch.equal(v_full, v_pre[None].expand(w, *v_pre.shape)))
+    k_full.fill_(float("nan"))
+    v_full.fill_(float("nan"))
+    slow = tsp.sp_ag_attention_cuda(q_pre, k_pre, v_pre, k_full=k_full,
+                                    v_full=v_full,
+                                    producer_delay_ns=PRODUCER_DELAY_NS)[0]
+    staged = staged and torch.equal(
+        k_full, k_pre[None].expand(w, *k_pre.shape))
+    if not (staged and torch.equal(slow, pre)):
+        raise AssertionError("phase 10: sp_ag_attention staging or its "
+                             "delayed run differs")
+    say("phase 10: sp_ag_attention staging == every rank's K and V; with "
+        "1 ms-delayed producers behind NaN staging: bit-identical")
+    del k_full, v_full, slow
+    free_card()
+
+    # (d) Times: kernel (CUDA events, L2 flushed), device alone
+    # (torch.profiler), plain, one library call, bound.
+    timer = Timer("cuda")
+    rows = {}
+    x = xs["prefill"]
+    nb = x[0].numel() * x.element_size()
+    t_b, by = bound_ms(0, pm.all_gather_bytes(w, nb))
+    lib = lambda: x.reshape(1, -1, x.shape[2]).expand(w, -1, -1).contiguous()
+    t_l = timer(lib, reps=10)
+    for name, run, kern in (("ring_ag", tag.ring_all_gather_cuda,
+                             "ring_ag_kernel"),
+                            ("a2a_ag", tag.a2a_all_gather_cuda,
+                             "a2a_ag_kernel")):
+        rows[name] = dict(ms=timer(lambda: run(x), reps=10),
+                          device_ms=kernel_device_ms(lambda: run(x), kern,
+                                                     n=10),
+                          plain_ms=timer(lambda: tag.all_gather_ref(x),
+                                         reps=10),
+                          library_ms=t_l, bound_ms=t_b, bound_by=by)
+        xd = xs["decode"]
+        say(f"phase 10: {name} at the decode shape {tuple(xd.shape)}: kernel "
+            f"{timer(lambda: run(xd), reps=20):.4f} ms, device alone "
+            f"{kernel_device_ms(lambda: run(xd), kern):.4f} ms, bound "
+            f"{bound_ms(0, pm.all_gather_bytes(w, xd[0].numel() * 2))[0]:.4f}"
+            f" ms [{card}]")
+    xl = randn(gen, w, SP_B * SP_HQ, feat, dtype=torch.float32)
+    stg = torch.zeros((w, 2, w - 1, SP_B * SP_HQ, feat), device="cuda")
+    epoch = torch.zeros((), dtype=torch.int32, device="cuda")
+    nb_l = xl[0].numel() * xl.element_size()
+    t_b, by = bound_ms(0, pm.all_gather_bytes(w, nb_l))
+    run_ll = lambda: tll.ll_all_gather_cuda(xl, stg, epoch)
+    rows["ll_allgather"] = dict(
+        ms=timer(run_ll, reps=20),
+        device_ms=kernel_device_ms(run_ll, "ll_allgather_kernel"),
+        plain_ms=timer(lambda: tll.ll_all_gather_ref(xl, stg, 0), reps=10),
+        library_ms=timer(lambda: xl.reshape(1, -1, feat).expand(
+            w, -1, -1).contiguous(), reps=20),
+        bound_ms=t_b, bound_by=by)
+    pairs = pm.sp_attention_pairs(w, SP_M, SP_M, True)
+    t_b, by = bound_ms(pm.sp_attention_flops(SP_HQ, SP_DH, pairs),
+                       pm.sp_attention_bytes(w, SP_HQ, SP_M, SP_M, SP_DH, 2))
+    run_sp = lambda: tsp.sp_ag_attention_cuda(q_pre, k_pre, v_pre)
+    qg, kg, vg = (t.permute(1, 0, 2, 3).reshape(1, SP_HQ, w * SP_M, SP_DH)
+                  for t in (q_pre, k_pre, v_pre))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows["sp_ag_attn"] = dict(
+        ms=timer(run_sp, reps=3, warmup=1),
+        device_ms=kernel_device_ms(run_sp, "sp_ag_attn_kernel", n=3),
+        plain_ms=timer(lambda: tsp.sp_ag_attention_ref(q_pre, k_pre, v_pre),
+                       reps=1, warmup=0),
+        library_ms=timer(lambda: sdpa(qg, kg, vg, is_causal=True), reps=3,
+                         warmup=1),
+        bound_ms=t_b, bound_by=by)
+    for name in SP_KERNELS:
+        r = rows[name]
+        say(f"phase 10: {name} times: kernel {r['ms']:.4f} ms (device alone "
+            f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}); one card stands in for {w}: the link is "
+            f"bypassed [{card}]")
+    say(f"phase 10: library calls: the allgathers and LL x.reshape(1, -1, "
+        f"n).expand({w}, -1, -1).contiguous(); sp_ag_attn "
+        f"scaled_dot_product_attention(is_causal=True) over the gathered "
+        f"(1, {SP_HQ}, {w * SP_M}, {SP_DH}); sp_ag_attn bound: "
+        f"{pm.sp_attention_flops(SP_HQ, SP_DH, pairs):.4g} operations (the "
+        f"{pairs} causal pairs a head)")
+    say(f"phase 10: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB [{card}]")
+    del xs, q_dec, k_dec, v_dec, q_pre, k_pre, v_pre, qg, kg, vg, xl, stg
+    free_card()
+    return {k: launches[k] for k in SP_KERNELS}, err, rows
+
+
+def _local_lens(kv_len: int, m_kv: int) -> torch.Tensor:
+    """Each rank's valid length of a global kv_len (the decode layer's
+    clip), for the plain pipeline."""
+    r = torch.arange(SP_WORLD, device="cuda")
+    return (kv_len - r * m_kv).clamp(0, m_kv).to(torch.int32)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3313,6 +3721,11 @@ def main() -> int:
     launches.update(mt_launches)
     err.update(mt_err)
     times.update(mt_times)
+    free_card()
+    sp_launches, sp_err, sp_times = phase_sp(gen, kernels, card)
+    launches.update(sp_launches)
+    err.update(sp_err)
+    times.update(sp_times)
 
     record = []
     for name, kern in kernels.KERNELS.items():

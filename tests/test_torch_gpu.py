@@ -1064,3 +1064,182 @@ def test_epoch_wrap_across_the_new_kernels(cuda):
             assert torch.equal(got, want) and torch.equal(staging,
                                                           want_staging)
     assert _signal._EPOCH[x.device] == 6   # 2**31 - 2, 2**31 - 1, 1 .. 6
+
+
+# -- sequence parallelism: the allgathers and the SP attention ---------------
+
+tag = importlib.import_module("triton_distributed_tpu_torch.kernels.allgather")
+tll = importlib.import_module(
+    "triton_distributed_tpu_torch.kernels.ll_allgather")
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 1024, 5120), torch.bfloat16), ((8, 16, 5120), torch.bfloat16),
+    ((3, 999, 384), torch.float32), ((8, 5, 33), torch.float32),
+    ((2, 10, 3), torch.bfloat16)])
+@pytest.mark.parametrize("method", ["ring", "a2a"])
+def test_all_gather_kernels_are_bit_identical(cuda, shape, dtype, method):
+    """Both allgathers give every rank the shards in rank order, bit for
+    bit, one launch each (ragged byte counts too: (8, 5, 33) f32 is 660
+    bytes a shard, (2, 10, 3) bf16 60)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = _randn(gen, *shape, dtype=dtype)
+    run = (tag.ring_all_gather_cuda if method == "ring"
+           else tag.a2a_all_gather_cuda)
+    _build.reset_counts()
+    got = run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tag.all_gather_ref(x))
+    kern = tag.RING_AG if method == "ring" else tag.A2A_AG
+    assert kern.launches == 1
+    host = tag.all_gather(x, world=shape[0],
+                          method="ring_1d" if method == "ring" else "all2all")
+    assert torch.equal(host, got[0])
+
+
+@pytest.mark.parametrize("method", ["ring", "a2a"])
+def test_all_gather_kernels_wait_for_delayed_producers(cuda, method):
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = _randn(gen, 8, 64, 384, dtype=torch.bfloat16)
+    run = (tag.ring_all_gather_cuda if method == "ring"
+           else tag.a2a_all_gather_cuda)
+    out = torch.full((8, 8 * 64, 384), float("nan"), dtype=x.dtype,
+                     device=cuda)
+    got = run(x, out=out, producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(got, tag.all_gather_ref(x))
+
+
+def test_ll_allgather_parity_epochs_and_restart(cuda):
+    """Five epochs on one staging, each bit-identical to the plain version;
+    a call writes only its parity's half (the other keeps what the call
+    before left there, NaN at first); a restart at epoch 0 after 4 and a
+    device-held epoch are still right; delayed pushes behind a NaN output
+    give the same bits; every call leaves the flags at 0."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    staging = torch.full((8, 2, 7, 256, 256), float("nan"), device=cuda)
+    mirror = staging.clone()
+    _build.reset_counts()
+    epochs = [0, 1, 2, 3, 4, 0, torch.tensor(1, dtype=torch.int32,
+                                              device=cuda)]
+    for i, epoch in enumerate(epochs):
+        x = _randn(gen, 8, 256, 256, dtype=torch.float32)
+        before = staging.clone()
+        delayed = i == 3
+        out = (torch.full((8, 8 * 256, 256), float("nan"), device=cuda)
+               if delayed else None)
+        got, st = tll.ll_all_gather_cuda(
+            x, staging, epoch, out=out,
+            producer_delay_ns=1_000_000 if delayed else 0)
+        want, mirror = tll.ll_all_gather_ref(x, mirror, epoch)
+        torch.cuda.synchronize()
+        p = int(epoch) % 2
+        assert st is staging and torch.equal(got, want)
+        assert torch.equal(staging[:, p], mirror[:, p])
+        assert torch.equal(staging[:, 1 - p].isnan(),
+                           before[:, 1 - p].isnan())
+        assert torch.equal(staging[:, 1 - p].nan_to_num(),
+                           before[:, 1 - p].nan_to_num())
+        flags = _signal.flags(x.device, tll.LL_AG.name, 1)
+        assert int(flags.abs().sum()) == 0
+    assert tll.LL_AG.launches == len(epochs)
+
+
+def test_flash_decode_kernel_at_local_length_zero(cuda):
+    """A rank whose shard holds no valid position: the kernel gives out 0
+    and lse -inf (no NaN), so its partial's merge weight is 0, and the SP
+    decode over ranks that own nothing matches the plain pipeline."""
+    from triton_distributed_tpu_torch.layers import SpGQAFlashDecodeAttention
+
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    q = _randn(gen, 4, 8, 128, dtype=torch.bfloat16)
+    k = _randn(gen, 4, 2, 64, 128, dtype=torch.bfloat16)
+    v = _randn(gen, 4, 2, 64, 128, dtype=torch.bfloat16)
+    lens = torch.tensor([0, 5, 0, 64], dtype=torch.int32, device=cuda)
+    out, lse = tsp.flash_decode_cuda(q, k, v, kv_len=lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isneginf(lse[0]).all() and torch.isneginf(lse[2]).all()
+    assert torch.isfinite(lse[1]).all() and torch.isfinite(lse[3]).all()
+    layer = SpGQAFlashDecodeAttention(8, 2, 128, world=8)
+    kc = _randn(gen, 8, 4, 2, 256, 128, dtype=torch.bfloat16)
+    vc = _randn(gen, 8, 4, 2, 256, 128, dtype=torch.bfloat16)
+    got = layer(q, kc, vc, kv_len=3 * 256 + 17)     # ranks 4-7 own nothing
+    want = layer(q.cpu(), kc.cpu(), vc.cpu(), kv_len=3 * 256 + 17)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.float32, 32),
+                                      (torch.bfloat16, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_sp_ag_attention_kernel_matches_plain(cuda, dtype, dh, causal):
+    """The SP prefill kernel against its plain version at world 4 with
+    ragged tiles (m 200, m_kv 136), the lse too; and with unaligned row and
+    column offsets, where some rows see no key at all (lse -1e30)."""
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q = _randn(gen, 4, 3, 200, dh, dtype=dtype)
+    k = _randn(gen, 4, 3, 136, dh, dtype=dtype)
+    v = _randn(gen, 4, 3, 136, dh, dtype=dtype)
+    for kw in ({}, dict(row_offset=[-50, 150, 371, 600], col_offset=3)):
+        _build.reset_counts()
+        out, lse, _, _ = tsp.sp_ag_attention_cuda(
+            q, k, v, causal=causal, return_partials=True, **kw)
+        want, want_lse = tsp.sp_ag_attention_ref(
+            q, k, v, causal=causal, return_partials=True, **kw)
+        torch.cuda.synchronize()
+        assert tsp.SP_AG_ATTN.launches == 1
+        tol = TOL[dtype]
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_sp_ag_attention_waits_for_delayed_producers(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(37)
+    q, k, v = (_randn(gen, 8, 4, 256, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    want, _, kf, vf = tsp.sp_ag_attention_cuda(q, k, v)
+    k_full = torch.full_like(kf, float("nan"))
+    v_full = torch.full_like(vf, float("nan"))
+    got, _, _, _ = tsp.sp_ag_attention_cuda(q, k, v, k_full=k_full,
+                                            v_full=v_full,
+                                            producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(k_full, k[None].expand(8, *k.shape))
+    assert torch.equal(v_full, v[None].expand(8, *v.shape))
+
+
+def test_epoch_wrap_across_the_sp_kernels(cuda):
+    """The epoch counter crosses its wrap between calls of the ring
+    allgather and the SP prefill, producers held back behind NaN: no flag
+    an earlier call raised near 2**31 reads as raised to a later one."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    x = _randn(gen, 8, 64, 256, dtype=torch.bfloat16)
+    q, k, v = (_randn(gen, 4, 2, 128, 64, dtype=torch.bfloat16)
+               for _ in range(3))
+    want_sp = tsp.sp_ag_attention_cuda(q, k, v)[0]
+    _signal._EPOCH[x.device] = 2 ** 31 - 3
+    for _ in range(2):
+        out = torch.full((8, 8 * 64, 256), float("nan"), dtype=x.dtype,
+                         device=cuda)
+        got = tag.ring_all_gather_cuda(x, out=out,
+                                       producer_delay_ns=1_000_000)
+        sp, _, kf, _ = tsp.sp_ag_attention_cuda(
+            q, k, v, k_full=torch.full((4, 4, 2, 128, 64), float("nan"),
+                                       dtype=q.dtype, device=cuda),
+            producer_delay_ns=1_000_000)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tag.all_gather_ref(x))
+        assert torch.equal(sp, want_sp)
+    assert _signal._EPOCH[x.device] == 2   # 2**31 - 2, 2**31 - 1, 1, 2

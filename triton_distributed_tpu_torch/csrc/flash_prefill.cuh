@@ -46,6 +46,100 @@ constexpr int smem_floats() {
          + 3 * R;          // row max, row sum, correction
 }
 
+// One key chunk of the CUDA-core tile, K and V already in shared memory
+// (sK [CK][DH+1], sV [CK][DH]): the R x CK scores against the scaled sQ
+// [R][DH+1], each kept where keep(row, key in chunk) holds and -inf
+// elsewhere; the streaming-softmax update of the row max sM and sum sL
+// (sC the correction); and acc = acc * corr + P V, rows ty + 16 i, head_dim
+// columns tx + 16 j. Every thread of the THREADS-thread block calls it; it
+// ends at a barrier, so the caller may refill sK and sV.
+template <int DH, typename Keep>
+__device__ __forceinline__ void simt_chunk(const float* sQ, const float* sK,
+                                           const float* sV, float* sS,
+                                           float* sM, float* sL, float* sC,
+                                           float (&acc)[4][DH / 16], int dh,
+                                           Keep keep) {
+  constexpr int NC = DH / 16;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  // Scores: rows ty + 16 i, keys tx + 16 j.
+  float sc[4][CK / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < CK / 16; ++j) sc[i][j] = 0.f;
+  for (int d = 0; d < dh; ++d) {
+    float a[4], kk[CK / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * (DH + 1) + d];
+#pragma unroll
+    for (int j = 0; j < CK / 16; ++j) kk[j] = sK[(tx + 16 * j) * (DH + 1) + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CK / 16; ++j) sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < CK / 16; ++j) {
+      const int c = tx + 16 * j;
+      sS[r * (CK + 1) + c] = keep(r, c) ? sc[i][j] : -INFINITY;
+    }
+  }
+  __syncthreads();
+
+  // Streaming softmax: 4 threads per row, CK/4 keys each.
+  {
+    const int r = tid >> 2, part = tid & 3;
+    float* srow = sS + r * (CK + 1) + part * (CK / 4);
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < CK / 4; ++c) mx = fmaxf(mx, srow[c]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_old = sM[r];
+    const float mn = fmaxf(m_old, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < CK / 4; ++c) {
+      const float sv = srow[c];
+      const float pv = sv == -INFINITY ? 0.f : expf(sv - mn);
+      srow[c] = pv;
+      sum += pv;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) {
+      const float corr = m_old == -INFINITY ? 0.f : expf(m_old - mn);
+      sC[r] = corr;
+      sL[r] = sL[r] * corr + sum;
+      sM[r] = mn;
+    }
+  }
+  __syncthreads();
+
+  // acc = acc * corr + P V: rows ty + 16 i, head_dim columns tx + 16 j.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float corr = sC[ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
+  }
+  for (int c = 0; c < CK; ++c) {
+    float p[4], vv[NC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * (CK + 1) + c];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) vv[j] = sV[c * DH + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+  }
+  __syncthreads();
+}
+
 template <typename TQ, int DH, typename KV>
 __global__ void __launch_bounds__(THREADS)
     flash_prefill_kernel(const TQ* __restrict__ q, KV kv, TQ* __restrict__ o,
@@ -133,86 +227,11 @@ __global__ void __launch_bounds__(THREADS)
     }
     __syncthreads();
 
-    // Scores: rows ty + 16 i, keys tx + 16 j.
-    float sc[4][CK / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CK / 16; ++j) sc[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float a[4], kk[CK / 16];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * (DH + 1) + d];
-#pragma unroll
-      for (int j = 0; j < CK / 16; ++j) kk[j] = sK[(tx + 16 * j) * (DH + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < CK / 16; ++j) sc[i][j] = fmaf(a[i], kk[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int p = p0 + r / g;
-      const int qpos = offset + p;
-#pragma unroll
-      for (int j = 0; j < CK / 16; ++j) {
-        const int c = tx + 16 * j, key = c0 + c;
-        const bool valid = p < q_hi && key <= qpos && key < kv_len;
-        sS[r * (CK + 1) + c] = valid ? sc[i][j] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // Streaming softmax: 4 threads per row, CK/4 keys each.
-    {
-      const int r = tid >> 2, part = tid & 3;
-      float* srow = sS + r * (CK + 1) + part * (CK / 4);
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CK / 4; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = sM[r];
-      const float mn = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < CK / 4; ++c) {
-        const float sv = srow[c];
-        const float pv = sv == -INFINITY ? 0.f : expf(sv - mn);
-        srow[c] = pv;
-        sum += pv;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (part == 0) {
-        const float corr = m_old == -INFINITY ? 0.f : expf(m_old - mn);
-        sC[r] = corr;
-        sL[r] = sL[r] * corr + sum;
-        sM[r] = mn;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V: rows ty + 16 i, head_dim columns tx + 16 j.
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = sC[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= corr;
-    }
-    for (int c = 0; c < CK; ++c) {
-      float p[4], vv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sS[(ty + 16 * i) * (CK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) vv[j] = sV[c * DH + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
+    simt_chunk<DH>(sQ, sK, sV, sS, sM, sL, sC, acc, dh,
+                   [&](int r, int c) {
+                     const int p = p0 + r / g, key = c0 + c;
+                     return p < q_hi && key <= offset + p && key < kv_len;
+                   });
   }
 
 #pragma unroll
@@ -249,6 +268,156 @@ constexpr int mma_smem_bytes() {
   return (R + 4 * MMA_CK) * (DH + 8) * 2;  // Q + 2 stages of K and V
 }
 
+// The streaming-softmax state of one thread's two rows of the 64-row tile,
+// r0 = warp * 16 + gid and r1 = r0 + 8 (gid = lane / 4), in the mma.sync
+// register layout: the running max and (per-thread partial) sum of each
+// row in the log2 domain, the O accumulator fragments and the warp's Q
+// fragments. Shared by the flash prefill and the SP prefill
+// (sp_ag_attn.cu), whose tiles differ only in their masks.
+template <int DH>
+struct MmaRows {
+  using bf16 = __nv_bfloat16;
+  static constexpr int LD = DH + 8;   // shared row stride (bf16)
+  static constexpr int KT = DH / 16;  // k-steps of Q K^T
+  static constexpr int NT = DH / 8;   // n-tiles of P V
+  float m_a, m_b, l_a, l_b;
+  float o[NT][4];
+  uint32_t qf[KT][4];
+
+  __device__ __forceinline__ void init() {
+    m_a = m_b = -INFINITY;
+    l_a = l_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  }
+
+  // The warp's Q fragments from sQ [R][LD].
+  __device__ __forceinline__ void load_q(const bf16* sQ) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int gid = lane / 4, tig = lane % 4;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      const bf16* base = sQ + (warp * 16 + gid) * LD + kk * 16 + 2 * tig;
+      qf[kk][0] = tdt::ld_b32(base);
+      qf[kk][1] = tdt::ld_b32(base + 8 * LD);
+      qf[kk][2] = tdt::ld_b32(base + 8);
+      qf[kk][3] = tdt::ld_b32(base + 8 * LD + 8);
+    }
+  }
+
+  // One chunk of MMA_CK keys, K and V in shared memory (cK, cV [MMA_CK]
+  // [LD]): S = Q K^T scaled into the log2 domain, masked to -inf where
+  // keep(key in chunk, row r1?) is false, the running max and sum updated,
+  // O = O * corr + P V with P rounded to bf16.
+  template <typename Keep>
+  __device__ __forceinline__ void chunk(const bf16* cK, const bf16* cV,
+                                        float scale_log2, Keep keep) {
+    const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+    // S for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
+    float sacc[MMA_CK / 8][4];
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < MMA_CK / 8; ++j) {
+        const bf16* kp = cK + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
+        const uint32_t bfrag[2] = {tdt::ld_b32(kp), tdt::ld_b32(kp + 8)};
+        tdt::mma_bf16(sacc[j], qf[kk], bfrag);
+      }
+    }
+
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + 2 * tig + e;
+        const float sa =
+            keep(key, false) ? sacc[j][e] * scale_log2 : -INFINITY;
+        const float sbv =
+            keep(key, true) ? sacc[j][2 + e] * scale_log2 : -INFINITY;
+        sacc[j][e] = sa;
+        sacc[j][2 + e] = sbv;
+        mx_a = fmaxf(mx_a, sa);
+        mx_b = fmaxf(mx_b, sbv);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = m_a == -INFINITY ? 0.f : exp2f(m_a - mn_a);
+    const float corr_b = m_b == -INFINITY ? 0.f : exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < MMA_CK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xa = sacc[j][e], xb = sacc[j][2 + e];
+        const float pva = xa == -INFINITY ? 0.f : exp2f(xa - mn_a);
+        const float pvb = xb == -INFINITY ? 0.f : exp2f(xb - mn_b);
+        sacc[j][e] = pva;
+        sacc[j][2 + e] = pvb;
+        sum_a += pva;
+        sum_b += pvb;
+      }
+    }
+    // Partial row sums stay per thread (the quad shares corr); they are
+    // summed across the quad once, in finish.
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= corr_a;
+      o[n][1] *= corr_a;
+      o[n][2] *= corr_b;
+      o[n][3] *= corr_b;
+    }
+
+    // O += P V: the score accumulators of key tiles 2ks, 2ks+1 are the
+    // A fragment of k-step ks.
+    const int mat = lane / 8, mrow = lane % 8;
+#pragma unroll
+    for (int ks = 0; ks < MMA_CK / 16; ++ks) {
+      const uint32_t pfrag[4] = {
+          tdt::pack_bf16x2(sacc[2 * ks][0], sacc[2 * ks][1]),
+          tdt::pack_bf16x2(sacc[2 * ks][2], sacc[2 * ks][3]),
+          tdt::pack_bf16x2(sacc[2 * ks + 1][0], sacc[2 * ks + 1][1]),
+          tdt::pack_bf16x2(sacc[2 * ks + 1][2], sacc[2 * ks + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t vfrag[4];
+        tdt::ldmatrix_x4_trans(
+            vfrag, cV + (ks * 16 + (mat & 1) * 8 + mrow) * LD +
+                       (n + (mat >> 1)) * 8);
+        tdt::mma_bf16(o[n], pfrag, vfrag);
+        tdt::mma_bf16(o[n + 1], pfrag, vfrag + 2);
+      }
+    }
+  }
+
+  // Sum each row's partial sums over its quad (once, after the last
+  // chunk); the rows' sums, at least 1e-30.
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
+      l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
+    }
+    l_a = fmaxf(l_a, 1e-30f);
+    l_b = fmaxf(l_b, 1e-30f);
+  }
+};
+
 template <int DH, typename KV>
 __global__ void __launch_bounds__(MMA_WARPS * 32)
     flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, KV kv,
@@ -259,9 +428,8 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
   using bf16 = __nv_bfloat16;
   static_assert(std::is_same<typename KV::Elem, bf16>::value && !KV::kQuant,
                 "the tensor-core kernel reads unquantized bf16 K/V");
-  constexpr int LD = DH + 8;   // shared row stride (bf16), conflict-free
-  constexpr int KT = DH / 16;  // k-steps of Q K^T
-  constexpr int NT = DH / 8;   // n-tiles of P V
+  constexpr int LD = MmaRows<DH>::LD;
+  constexpr int NT = MmaRows<DH>::NT;
   constexpr int VEC = DH / 8;  // 16-byte vectors per row
   constexpr int THREADS_M = MMA_WARPS * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -313,151 +481,46 @@ __global__ void __launch_bounds__(MMA_WARPS * 32)
   const int pa = p0 + r0 / g, pb = p0 + r1 / g;
   const int qpos_a = offset + pa, qpos_b = offset + pb;
   const bool live_a = pa < q_hi, live_b = pb < q_hi;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  float oacc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[n][e] = 0.f;
-  uint32_t qf[KT][4];
+  MmaRows<DH> st;
+  st.init();
 
   const int nchunks = (kv_hi + MMA_CK - 1) / MMA_CK;
   if (nchunks > 0) load_kv(0, 0);
   tdt::cp_async_commit();
   for (int it = 0; it < nchunks; ++it) {
-    const int st = it & 1;
-    if (it + 1 < nchunks) load_kv(st ^ 1, (it + 1) * MMA_CK);
+    const int stg = it & 1;
+    if (it + 1 < nchunks) load_kv(stg ^ 1, (it + 1) * MMA_CK);
     tdt::cp_async_commit();
     tdt::cp_async_wait1();  // Q and this chunk have landed
     __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const bf16* base = sQ + (warp * 16 + gid) * LD + kk * 16 + 2 * tig;
-        qf[kk][0] = tdt::ld_b32(base);
-        qf[kk][1] = tdt::ld_b32(base + 8 * LD);
-        qf[kk][2] = tdt::ld_b32(base + 8);
-        qf[kk][3] = tdt::ld_b32(base + 8 * LD + 8);
-      }
-    }
-    const bf16* cK = sK + st * MMA_CK * LD;
-    const bf16* cV = sV + st * MMA_CK * LD;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys).
-    float sacc[MMA_CK / 8][4];
-#pragma unroll
-    for (int j = 0; j < MMA_CK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int j = 0; j < MMA_CK / 8; ++j) {
-        const bf16* kp = cK + (j * 8 + gid) * LD + kk * 16 + 2 * tig;
-        const uint32_t bfrag[2] = {tdt::ld_b32(kp), tdt::ld_b32(kp + 8)};
-        tdt::mma_bf16(sacc[j], qf[kk], bfrag);
-      }
-    }
-
-    // Mask (causal, kv_len, padding rows) and scale into the log2 domain.
+    if (it == 0) st.load_q(sQ);
+    // Mask: causal, kv_len, padding rows.
     const int c0 = it * MMA_CK;
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < MMA_CK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = c0 + j * 8 + 2 * tig + e;
-        const bool kok = key < kv_len;
-        const float sa = live_a && kok && key <= qpos_a
-                             ? sacc[j][e] * scale_log2 : -INFINITY;
-        const float sbv = live_b && kok && key <= qpos_b
-                              ? sacc[j][2 + e] * scale_log2 : -INFINITY;
-        sacc[j][e] = sa;
-        sacc[j][2 + e] = sbv;
-        mx_a = fmaxf(mx_a, sa);
-        mx_b = fmaxf(mx_b, sbv);
-      }
-    }
-#pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = m_a == -INFINITY ? 0.f : exp2f(m_a - mn_a);
-    const float corr_b = m_b == -INFINITY ? 0.f : exp2f(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < MMA_CK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float xa = sacc[j][e], xb = sacc[j][2 + e];
-        const float pva = xa == -INFINITY ? 0.f : exp2f(xa - mn_a);
-        const float pvb = xb == -INFINITY ? 0.f : exp2f(xb - mn_b);
-        sacc[j][e] = pva;
-        sacc[j][2 + e] = pvb;
-        sum_a += pva;
-        sum_b += pvb;
-      }
-    }
-    // Partial row sums stay per thread (the quad shares corr); they are
-    // summed across the quad once, at the end.
-    l_a = l_a * corr_a + sum_a;
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      oacc[n][0] *= corr_a;
-      oacc[n][1] *= corr_a;
-      oacc[n][2] *= corr_b;
-      oacc[n][3] *= corr_b;
-    }
-
-    // O += P V: the score accumulators of key tiles 2ks, 2ks+1 are the
-    // A fragment of k-step ks.
-    const int mat = lane / 8, mrow = lane % 8;
-#pragma unroll
-    for (int ks = 0; ks < MMA_CK / 16; ++ks) {
-      const uint32_t pfrag[4] = {
-          tdt::pack_bf16x2(sacc[2 * ks][0], sacc[2 * ks][1]),
-          tdt::pack_bf16x2(sacc[2 * ks][2], sacc[2 * ks][3]),
-          tdt::pack_bf16x2(sacc[2 * ks + 1][0], sacc[2 * ks + 1][1]),
-          tdt::pack_bf16x2(sacc[2 * ks + 1][2], sacc[2 * ks + 1][3])};
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t vfrag[4];
-        tdt::ldmatrix_x4_trans(
-            vfrag, cV + (ks * 16 + (mat & 1) * 8 + mrow) * LD +
-                       (n + (mat >> 1)) * 8);
-        tdt::mma_bf16(oacc[n], pfrag, vfrag);
-        tdt::mma_bf16(oacc[n + 1], pfrag, vfrag + 2);
-      }
-    }
+    st.chunk(sK + stg * MMA_CK * LD, sV + stg * MMA_CK * LD, scale_log2,
+             [&](int key, bool row_b) {
+               const int k = c0 + key;
+               return k < kv_len && (row_b ? live_b && k <= qpos_b
+                                           : live_a && k <= qpos_a);
+             });
     __syncthreads();  // the stage is free for the load two chunks on
   }
   tdt::cp_async_wait_all();  // a tile that saw no keys still loaded Q
 
-#pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o2);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o2);
-  }
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  st.finish();
+  const float inv_a = 1.f / st.l_a, inv_b = 1.f / st.l_b;
   if (pa < L) {
     bf16* orow = o + (((size_t)b * L + pa) * Hq + (size_t)h * g + r0 % g) * DH;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tig) =
-          __floats2bfloat162_rn(oacc[n][0] * inv_a, oacc[n][1] * inv_a);
+          __floats2bfloat162_rn(st.o[n][0] * inv_a, st.o[n][1] * inv_a);
   }
   if (pb < L) {
     bf16* orow = o + (((size_t)b * L + pb) * Hq + (size_t)h * g + r1 % g) * DH;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tig) =
-          __floats2bfloat162_rn(oacc[n][2] * inv_b, oacc[n][3] * inv_b);
+          __floats2bfloat162_rn(st.o[n][2] * inv_b, st.o[n][3] * inv_b);
   }
 }
 

@@ -7,16 +7,30 @@ the TPU kernel it replaces and its launch count.
 """
 
 from triton_distributed_tpu_torch.kernels import (  # noqa: F401
+    allgather,
     allgather_gemm,
     allreduce,
     ep_all_to_all,
     gemm_reduce_scatter,
+    ll_allgather,
     moe_overlap,
     moe_utils,
     notify_wait,
     paged_attention,
     reduce_scatter,
     sp_attention,
+)
+from triton_distributed_tpu_torch.kernels.allgather import (  # noqa: F401
+    AllGatherMethod,
+    a2a_all_gather,
+    all_gather,
+    choose_all_gather_method,
+    ring_all_gather,
+)
+from triton_distributed_tpu_torch.kernels.ll_allgather import (  # noqa: F401
+    ll_all_gather,
+    ll_all_gather_device,
+    make_ll_staging,
 )
 from triton_distributed_tpu_torch.kernels.moe_overlap import (  # noqa: F401
     MoEOverlapConfig,
@@ -33,6 +47,11 @@ from triton_distributed_tpu_torch.kernels.moe_overlap import (  # noqa: F401
 from triton_distributed_tpu_torch.kernels.reduce_scatter import (  # noqa: F401
     oneshot_reduce_scatter,
     ring_reduce_scatter,
+)
+from triton_distributed_tpu_torch.kernels.sp_attention import (  # noqa: F401
+    decode_partial_feat,
+    flash_decode_device,
+    sp_ag_attention_device,
 )
 from triton_distributed_tpu_torch.kernels._build import (  # noqa: F401
     KERNELS,

@@ -118,6 +118,20 @@ SIGNATURES = {
     # f, d, dtype, producer delay (ns), stream
     "tdt_group_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
                           I32, U64, P],
+    # x, out, flags, ticket, epoch, world, shard bytes, piece bytes,
+    # producer delay (ns), stream
+    "tdt_ring_ag": [P, P, P, P, U32, I64, I64, I64, U64, P],
+    # x, out, world, shard bytes, piece bytes, producer delay (ns), stream
+    "tdt_a2a_ag": [P, P, I64, I64, I64, U64, P],
+    # x, staging, out, flags, ticket, epoch (nullable int32 on the card),
+    # epoch value, world, shard bytes, piece bytes, producer delay (ns),
+    # stream
+    "tdt_ll_allgather": [P, P, P, P, P, P, I64, I64, I64, I64, U64, P],
+    # q, k, v, k_full, v_full, out, lse (nullable), offsets ((2, world)
+    # int32: row, col), flags, ticket, epoch, world, H, m, m_kv, dh,
+    # causal, scale, dtype, producer delay (ns), stream
+    "tdt_sp_ag_attn": [P, P, P, P, P, P, P, P, P, P, U32, I64, I64, I64,
+                       I64, I64, I32, F32, I32, U64, P],
 }
 
 

@@ -1,0 +1,192 @@
+"""Allgather: ring and direct push over simulated ranks.
+
+Counterpart of ``triton_distributed_tpu/kernels/allgather.py``. At world 1
+``ring_all_gather`` (:196) and ``a2a_all_gather`` (:207) return their input
+(``_ag_call`` :163-164). At world > 1 the ranks are simulated on one card:
+they take every rank's shard stacked, ``(world, m, ...)``, and return every
+rank's gathered copy, ``(world, world * m, ...)`` (segment s of each copy
+is rank s's shard), on ``csrc/ring_ag.cu`` (``_ring_ag_kernel`` :87: world
+- 1 ring steps, each forwarding the chunk that arrived at the step before)
+and ``csrc/a2a_ag.cu`` (``_a2a_ag_kernel`` :125: every rank pushes its
+shard straight into every peer's output). Both compute one function, so
+one plain version, ``all_gather_ref``, holds both. The host wrapper
+``all_gather`` (:221) takes the stacked shards and returns the gathered
+``(world * m, ...)``, by the method ``choose_all_gather_method`` (:62) picks
+from the perf model. One card stands in for the group: the pushes go
+through device memory, not NVLink. The 2-D exchange (``method="ring_2d"``,
+a ``dcn_axis``) is not ported and raises.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import torch
+
+from triton_distributed_tpu_torch.kernels import _build, _signal
+from triton_distributed_tpu_torch.kernels.allreduce import (
+    _check_world,
+    _stacked,
+)
+
+RING_AG = _build.register(
+    "ring_ag", "triton_distributed_tpu_torch/csrc/ring_ag.cu",
+    "triton_distributed_tpu/kernels/allgather.py:87")
+A2A_AG = _build.register(
+    "a2a_ag", "triton_distributed_tpu_torch/csrc/a2a_ag.cu",
+    "triton_distributed_tpu/kernels/allgather.py:125")
+
+# Bytes one work item copies: a piece of one rank's shard.
+PIECE_BYTES = 16384
+
+
+class AllGatherMethod(enum.Enum):
+    """The JAX method enum (:51): direct push, the 1-D ring, the 2-D ring
+    over a dcn axis (not ported) and the low-latency allgather
+    (``kernels/ll_allgather.py``)."""
+
+    AUTO = "auto"
+    ALL2ALL = "all2all"
+    RING_1D = "ring_1d"
+    RING_2D = "ring_2d"
+    LL = "ll"
+
+
+def choose_all_gather_method(world: int, nbytes: int, num_slices: int = 1,
+                             *, hw=None) -> AllGatherMethod:
+    """AUTO's rule (JAX :62-79): the 2-D ring across slices; direct push at
+    world <= 2; else whichever the perf model (``runtime/perf_model.py``,
+    this card's figures unless ``hw`` is given) estimates faster for one
+    ``nbytes`` shard, the push on a tie."""
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    if num_slices > 1:
+        return AllGatherMethod.RING_2D
+    if world <= 2:
+        return AllGatherMethod.ALL2ALL
+    push = pm.est_push_all_gather(nbytes, world, hw)
+    ring = pm.est_ring_all_gather(nbytes, world, hw)
+    return AllGatherMethod.ALL2ALL if push <= ring else AllGatherMethod.RING_1D
+
+
+def all_gather_ref(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of both allgathers: ``x`` (world, m, ...) -> every
+    rank's gathered copy (world, world m, ...), each the shards in rank
+    order."""
+    world = x.shape[0]
+    flat = x.reshape(1, world * x.shape[1], *x.shape[2:])
+    return flat.expand(world, *flat.shape[1:]).clone()
+
+
+def _ag_cuda(name: str, kernel: _build.Kernel, x: torch.Tensor, out,
+             producer_delay_ns: int) -> torch.Tensor:
+    """Launch one of the two allgather kernels on the current stream."""
+    world = x.shape[0]
+    _stacked(name, x, world)
+    if world < 2 or not x.is_cuda or not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous CUDA tensor of world "
+                         f">= 2 shards")
+    shape = (world, world * x.shape[1], *x.shape[2:])
+    if out is None:
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    elif (tuple(out.shape) != shape or out.dtype != x.dtype
+          or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {shape} {x.dtype} "
+                         f"tensor on {x.device}")
+    seg = x[0].numel() * x.element_size()
+    stream = _build.stream_ptr(x)
+    if kernel is RING_AG:
+        n_pieces = -(-seg // PIECE_BYTES)
+        flags = _signal.flags(x.device, kernel.name,
+                              world * (world - 1) * n_pieces)
+        ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+        err = _build.lib().tdt_ring_ag(
+            x.data_ptr(), out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
+            _signal.next_epoch(x.device), world, seg, PIECE_BYTES,
+            producer_delay_ns, stream)
+        _build.check(err, "tdt_ring_ag")
+    else:
+        err = _build.lib().tdt_a2a_ag(x.data_ptr(), out.data_ptr(), world,
+                                      seg, PIECE_BYTES, producer_delay_ns,
+                                      stream)
+        _build.check(err, "tdt_a2a_ag")
+    kernel.launches += 1
+    return out
+
+
+def ring_all_gather_cuda(x: torch.Tensor, *, out=None,
+                         producer_delay_ns: int = 0) -> torch.Tensor:
+    """Launch ``csrc/ring_ag.cu`` on the current stream: ``x`` (world, m,
+    ...) contiguous, any dtype. Returns every rank's gathered copy (world,
+    world m, ...). ``out`` (default: a new buffer) and ``producer_delay_ns``
+    (the ring's first pushes and the own copies sleep that long) let a test
+    poison the output and hold the ring back; the result must not change."""
+    return _ag_cuda("ring_all_gather_cuda", RING_AG, x, out,
+                    producer_delay_ns)
+
+
+def a2a_all_gather_cuda(x: torch.Tensor, *, out=None,
+                        producer_delay_ns: int = 0) -> torch.Tensor:
+    """Launch ``csrc/a2a_ag.cu`` on the current stream, with
+    ``ring_all_gather_cuda``'s contract (every push sleeps
+    ``producer_delay_ns``)."""
+    return _ag_cuda("a2a_all_gather_cuda", A2A_AG, x, out, producer_delay_ns)
+
+
+def _ag(name: str, cuda, x_local: torch.Tensor, world: int) -> torch.Tensor:
+    _check_world(world)
+    if world == 1:
+        return x_local
+    _stacked(name, x_local, world)
+    if x_local.is_cuda:
+        return cuda(x_local.contiguous())
+    return all_gather_ref(x_local)
+
+
+def ring_all_gather(x_local: torch.Tensor, *, world: int = 1) -> torch.Tensor:
+    """Bandwidth-optimal ring allgather (JAX :196). At world 1 ``x_local``
+    is returned as is; at world > 1 it is every rank's shard stacked,
+    (world, m, ...), and the result every rank's gathered copy, (world,
+    world m, ...): the kernel on a CUDA tensor, the plain version on a CPU
+    one."""
+    return _ag("ring_all_gather", ring_all_gather_cuda, x_local, world)
+
+
+def a2a_all_gather(x_local: torch.Tensor, *, world: int = 1) -> torch.Tensor:
+    """Latency-optimal direct-push allgather (JAX :207), stacked in and out
+    as ``ring_all_gather``."""
+    return _ag("a2a_all_gather", a2a_all_gather_cuda, x_local, world)
+
+
+def all_gather(x_stacked: torch.Tensor, *, world: int,
+               method: AllGatherMethod | str = AllGatherMethod.AUTO,
+               dcn_axis: str | None = None) -> torch.Tensor:
+    """Standalone allgather (JAX :221): ``x_stacked`` (world, m, ...), rank
+    r's shard at index r; returns the gathered (world m, ...), rank 0's
+    copy (every rank's holds the same bits). AUTO asks
+    ``choose_all_gather_method`` with one rank's bytes, by the figures of
+    the card the tensor is on (a CPU tensor, which runs the plain version,
+    by the H100 SXM's). The 2-D exchange (``method="ring_2d"``, a
+    ``dcn_axis``) raises ``NotImplementedError``: its inter-slice leg cannot
+    be checked on one card."""
+    from triton_distributed_tpu_torch.runtime import perf_model as pm
+
+    if x_stacked.dim() < 2 or x_stacked.shape[0] != world:
+        raise ValueError(f"all_gather at world {world} takes every rank's "
+                         f"shard stacked, (world, m, ...), got "
+                         f"{tuple(x_stacked.shape)}")
+    method = AllGatherMethod(method)
+    if dcn_axis is not None or method is AllGatherMethod.RING_2D:
+        raise NotImplementedError("the 2-D allgather (ring_2d over a dcn "
+                                  "axis) is not ported: see ROADMAP.md")
+    if method is AllGatherMethod.AUTO:
+        method = choose_all_gather_method(
+            world, x_stacked[0].numel() * x_stacked.element_size(),
+            hw=None if x_stacked.is_cuda else pm.H100_SXM)
+    if method is AllGatherMethod.LL:
+        raise ValueError("the LL allgather needs a persistent staging: use "
+                         "kernels.ll_allgather.ll_all_gather")
+    run = ring_all_gather if method is AllGatherMethod.RING_1D else \
+        a2a_all_gather
+    out = run(x_stacked, world=world)
+    return out[0] if world > 1 else out.reshape(-1, *x_stacked.shape[2:])

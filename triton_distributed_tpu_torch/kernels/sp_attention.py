@@ -16,17 +16,32 @@ The JAX prefill returns None on shapes Mosaic cannot tile
 port's ``flash_prefill`` always answers.
 
 Each entry point takes CUDA tensors to the kernel and CPU tensors to the
-plain version beside it (``flash_prefill_ref``, ``flash_decode_ref``). The
-sequence-parallel multi-rank kernels are not ported yet. ``paged_gather_kv``
-(:800), the paged pool's table walk, is the serving path's reference
-oracle.
+plain version beside it (``flash_prefill_ref``, ``flash_decode_ref``).
+``paged_gather_kv`` (:800), the paged pool's table walk, is the serving
+path's reference oracle.
+
+Sequence parallelism at world > 1, the ranks simulated on one card (every
+rank's shard in a rank stack, ``(world, ...)``):
+
+- ``flash_decode_device`` (:861): one ``flash_decode_local`` launch over
+  every rank's cache shard, the (out, lse) partials packed in JAX's wire
+  format (``_pack_decode_partial`` :850), exchanged over the ring
+  allgather (``kernels/allgather.py``) or the LL one
+  (``kernels/ll_allgather.py``), and merged by log-sum-exp in torch ops
+  (JAX merges in ``jnp`` outside any kernel);
+- ``sp_ag_attention_device`` (:147) -> ``csrc/sp_ag_attn.cu``, replacing
+  ``_sp_attn_kernel`` (:47): the KV allgather overlapped into a
+  streaming-softmax attention.
+
+The 2-D variants (``flash_decode_2d_device``, ``sp_ag_attention_2d_device``)
+are not ported and raise: their inter-slice leg needs NCCL across cards.
 """
 
 from __future__ import annotations
 
 import torch
 
-from triton_distributed_tpu_torch.kernels import _build
+from triton_distributed_tpu_torch.kernels import _build, _signal
 
 FLASH_PREFILL = _build.register(
     "flash_prefill", "triton_distributed_tpu_torch/csrc/flash_prefill.cu",
@@ -36,6 +51,13 @@ FLASH_PREFILL = _build.register(
 FLASH_DECODE = _build.register(
     "flash_decode", "triton_distributed_tpu_torch/csrc/flash_decode.cu",
     "triton_distributed_tpu/kernels/sp_attention.py:567")
+SP_AG_ATTN = _build.register(
+    "sp_ag_attn", "triton_distributed_tpu_torch/csrc/sp_ag_attn.cu",
+    "triton_distributed_tpu/kernels/sp_attention.py:47")
+
+# JAX's mask value (:44): a softmax state that has seen no key keeps it as
+# its max, so an empty shard's partial has lse ~ -1e30 and merge weight 0.
+_NEG_INF = -1e30
 
 
 # Query heads per kv head that the kernels are instantiated for (a divisor
@@ -306,3 +328,307 @@ def _check_attn_operands(q, k, v, name: str) -> None:
     if g not in _GQA_GROUPS:
         raise ValueError(f"{name}: {g} query heads per kv head; the kernel "
                          f"takes {_GQA_GROUPS}")
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism over simulated ranks
+# ---------------------------------------------------------------------------
+
+
+def decode_partial_feat(dh: int) -> int:
+    """Width of a packed (out, lse) decode-partial row (JAX :842): dh + 1
+    rounded up to 128. An LL staging for the partial exchange is sized by
+    it."""
+    return ((dh + 1 + 127) // 128) * 128
+
+
+def _pack_decode_partial(out: torch.Tensor, lse: torch.Tensor,
+                         dh: int) -> torch.Tensor:
+    """The decode partials' wire format (JAX :850): rows ``[out | lse |
+    0-pad]`` of width ``decode_partial_feat(dh)``, one per (row, head) of
+    ``out (..., dh)``. An lse below JAX's -1e30 (a shard that saw no key)
+    is sent as -1e30, as JAX's kernel leaves it."""
+    rows = out.numel() // dh
+    packed = torch.zeros(rows, decode_partial_feat(dh), dtype=out.dtype,
+                         device=out.device)
+    packed[:, :dh] = out.reshape(rows, dh)
+    packed[:, dh] = lse.reshape(rows).clamp_min(_NEG_INF)
+    return packed
+
+
+def flash_decode_device(q, k_cache_local, v_cache_local, *, world: int = 1,
+                        kv_len=None, scale: float | None = None,
+                        ll_staging=None, ll_epoch=None):
+    """Distributed decode attention with the KV sequence sharded over the
+    ranks (JAX :861).
+
+    World 1: q (B, Hq, dh), k/v_cache_local (B, Hkv, m_kv, dh), ``kv_len``
+    the valid length (int or (B,)); returns ``flash_decode_local``'s out in
+    q's dtype. World > 1: q (B, Hq, dh) shared by every rank,
+    k/v_cache_local every rank's shard stacked, (world, B, Hkv, m_kv, dh),
+    ``kv_len`` each rank's LOCAL valid length (an int for every rank, a
+    (world,) tensor, or (world, B) for one per row); one
+    ``flash_decode_local`` launch over all world B rows, the partials
+    packed (``_pack_decode_partial``) and gathered over the ring allgather,
+    or over the LL allgather when ``ll_staging`` (world, 2, world - 1, B
+    Hq, decode_partial_feat(dh)) and ``ll_epoch`` are given, then merged by
+    log-sum-exp. Returns every rank's output (world, B, Hq, dh), and the
+    staging with ``ll_staging``."""
+    return _sp_decode(q, k_cache_local, v_cache_local, world, kv_len, scale,
+                      ll_staging, ll_epoch, plain=False)
+
+
+def flash_decode_device_ref(q, k_cache_local, v_cache_local, *,
+                            world: int = 1, kv_len=None,
+                            scale: float | None = None, ll_staging=None,
+                            ll_epoch=None):
+    """The plain pipeline of ``flash_decode_device`` on any device: the
+    same steps through the plain versions of its kernels
+    (``flash_decode_ref``, ``all_gather_ref``, ``ll_all_gather_ref``)."""
+    return _sp_decode(q, k_cache_local, v_cache_local, world, kv_len, scale,
+                      ll_staging, ll_epoch, plain=True)
+
+
+def _sp_decode(q, k, v, world, kv_len, scale, ll_staging, ll_epoch, plain):
+    from triton_distributed_tpu_torch.kernels import allgather as ag
+    from triton_distributed_tpu_torch.kernels import ll_allgather as ll
+
+    local = flash_decode_ref if plain else flash_decode_local
+    B, H, dh = q.shape
+    if world == 1:
+        out = local(q, k, v, kv_len=kv_len, scale=scale)[0].to(q.dtype)
+        return (out, ll_staging) if ll_staging is not None else out
+    if k.dim() != 5 or k.shape[0] != world:
+        raise ValueError(f"flash_decode_device at world {world} takes every "
+                         f"rank's cache shard stacked, (world, B, Hkv, m_kv, "
+                         f"dh), got {tuple(k.shape)}")
+    feat = decode_partial_feat(dh)
+    if ll_staging is not None and ll_staging.shape[-1] != feat:
+        raise ValueError(
+            f"ll_staging feature width {ll_staging.shape[-1]} != "
+            f"decode_partial_feat({dh}) = {feat}; size the staging as "
+            f"make_ll_staging((B*H, decode_partial_feat(dh)), ...) — the "
+            f"packed (out, lse) rows are lane-padded")
+    rows = world * B
+    lens = None
+    if kv_len is not None:
+        lens = torch.as_tensor(kv_len, dtype=torch.int32, device=q.device)
+        lens = lens.reshape(-1, 1) if lens.dim() < 2 else lens
+        lens = lens.expand(world, B).reshape(rows)
+    out, lse = local(q.expand(world, B, H, dh).reshape(rows, H, dh),
+                     k.reshape(rows, *k.shape[2:]),
+                     v.reshape(rows, *v.shape[2:]), kv_len=lens, scale=scale)
+    packed = _pack_decode_partial(out, lse, dh).reshape(world, B * H, feat)
+    if ll_staging is not None:
+        exchange = ll.ll_all_gather_ref if plain else \
+            lambda x, s, e: ll.ll_all_gather_device(x, s, e, world=world)
+        gathered, ll_staging = exchange(packed, ll_staging, ll_epoch)
+    else:
+        gathered = (ag.all_gather_ref(packed) if plain
+                    else ag.ring_all_gather(packed, world=world))
+    gathered = gathered.reshape(world, world, B, H, feat)   # [rank, source]
+    outs, lses = gathered[..., :dh], gathered[..., dh]
+    w = torch.softmax(lses, dim=1)[..., None]
+    out = (w * outs).sum(dim=1).to(q.dtype)
+    return (out, ll_staging) if ll_staging is not None else out
+
+
+def flash_decode_2d_device(*args, **kwargs):
+    """JAX :927: the decode partials merged within a slice, then across
+    slices over a dcn axis. Not ported: the inter-slice leg needs NCCL
+    across cards (see ROADMAP.md)."""
+    raise NotImplementedError("flash_decode_2d_device (SP decode over a dcn "
+                              "axis) is not ported: see ROADMAP.md")
+
+
+def _single_device_attn(q, k, v, *, causal: bool, scale: float):
+    """World-1 SP prefill (JAX :292), as torch ops where JAX uses ``jnp``:
+    q/k/v (H, m, dh), dense softmax attention in f32."""
+    scores = torch.einsum("hmd,hnd->hmn", q.float(), k.float()) * scale
+    if causal:
+        m, n = scores.shape[-2:]
+        mask = (torch.arange(m, device=q.device)[:, None]
+                >= torch.arange(n, device=q.device)[None, :])
+        scores = torch.where(mask, scores, _NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("hmn,hnd->hmd", p, v.float()).to(q.dtype)
+
+
+def _sp_offsets(world: int, m: int, row_offset, col_offset) -> list:
+    """Each rank's first global q row (default r m) and the global column
+    of its gathered keys' first (default 0), as two lists of ints: an int
+    applies to every rank, a sequence or tensor gives one per rank."""
+    def per_rank(x, default):
+        if x is None:
+            return default
+        if isinstance(x, torch.Tensor):
+            x = x.tolist()
+        if isinstance(x, int):
+            return [x] * world
+        if len(x) != world:
+            raise ValueError(f"an offset per rank: {world} values, got "
+                             f"{len(x)}")
+        return [int(v) for v in x]
+
+    return [per_rank(row_offset, [r * m for r in range(world)]),
+            per_rank(col_offset, [0] * world)]
+
+
+def sp_ag_attention_ref(q, k, v, *, causal: bool = True,
+                        scale: float | None = None, row_offset=None,
+                        col_offset=None, return_partials: bool = False):
+    """Plain version of the SP prefill in the kernel's order: per rank, the
+    segments own first, a streaming softmax in f32 carried across them
+    (segments right of the rank's last row skipped when causal), heads in
+    groups sized to keep the scores near 1 GiB. q (world, H, m, dh), k/v
+    (world, H, m_kv, dh); returns out (world, H, m, dh) in q's dtype, and
+    with ``return_partials`` the lse (world, H, m) f32 (a row that saw no
+    key: -1e30, JAX's value)."""
+    world, H, m, dh = q.shape
+    m_kv = k.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    rows0, cols0 = _sp_offsets(world, m, row_offset, col_offset)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((world, H, m), dtype=torch.float32, device=q.device)
+    hc = max(1, min(H, (1 << 28) // (m * m_kv)))
+    keys = torch.arange(m_kv, device=q.device)
+    for r in range(world):
+        qpos = rows0[r] + torch.arange(m, device=q.device)
+        for h0 in range(0, H, hc):
+            hs = slice(h0, h0 + hc)
+            qf = q[r, hs].float() * scale
+            n = qf.shape[0]
+            acc = torch.zeros(n, m, dh, device=q.device)
+            mx = torch.full((n, m, 1), float("-inf"), device=q.device)
+            den = torch.zeros(n, m, 1, device=q.device)
+            for s in range(world):
+                src = (r + s) % world
+                cb = cols0[r] + src * m_kv
+                if causal and cb > rows0[r] + m - 1:
+                    continue
+                sc = torch.einsum("hmd,hnd->hmn", qf, k[src, hs].float())
+                if causal:
+                    valid = (cb + keys)[None, :] <= qpos[:, None]
+                    sc = sc.masked_fill(~valid, float("-inf"))
+                new = torch.maximum(mx, sc.amax(-1, keepdim=True))
+                safe = torch.where(torch.isfinite(new), new, 0.0)
+                corr = torch.exp(mx - safe)
+                p = torch.exp(sc - safe)
+                den = den * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + torch.einsum("hmn,hnd->hmd", p,
+                                                v[src, hs].float())
+                mx = new
+                del sc, p
+            d = den.clamp_min(1e-30)
+            out[r, hs] = (acc / d).to(q.dtype)
+            lse[r, hs] = (torch.where(torch.isfinite(mx), mx, _NEG_INF)
+                          + torch.log(d))[..., 0]
+    return (out, lse) if return_partials else out
+
+
+def sp_ag_attention_cuda(q, k, v, *, causal: bool = True,
+                         scale: float | None = None, row_offset=None,
+                         col_offset=None, return_partials: bool = False,
+                         k_full=None, v_full=None,
+                         producer_delay_ns: int = 0):
+    """Launch ``csrc/sp_ag_attn.cu`` on the current stream: q (world, H, m,
+    dh), k/v (world, H, m_kv, dh), contiguous, f32 or bf16, dh a multiple
+    of 8 up to 128. Returns (out (world, H, m, dh), lse (world, H, m) f32
+    or None, k_full, v_full): the staging (world, world, H, m_kv, dh), rank
+    dst's gathered K and V at [dst] (default: new buffers). ``k_full``,
+    ``v_full`` and ``producer_delay_ns`` (every producer item sleeps that
+    long) let a test poison the staging and hold the copies back; the
+    result must not change."""
+    world, H, m, dh = q.shape
+    m_kv = k.shape[2]
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("sp_ag_attention_cuda takes CUDA tensors")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("sp_ag_attention_cuda: q/k/v dtypes differ")
+    if (k.shape != v.shape or k.shape[:2] != (world, H) or k.shape[3] != dh
+            or not all(t.is_contiguous() for t in (q, k, v))):
+        raise ValueError(f"sp_ag_attention_cuda: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}: expected "
+                         f"contiguous (world, H, m, dh) and (world, H, m_kv, "
+                         f"dh)")
+    if dh > 128 or dh % 8:
+        raise ValueError(f"sp_ag_attention_cuda: head_dim {dh} must be a "
+                         f"multiple of 8 and at most 128")
+    code = _build.dtype_code(q)
+    shape = (world, world, H, m_kv, dh)
+    stages = []
+    for buf in (k_full, v_full):
+        if buf is None:
+            buf = torch.empty(shape, dtype=q.dtype, device=q.device)
+        elif (tuple(buf.shape) != shape or buf.dtype != q.dtype
+              or buf.device != q.device or not buf.is_contiguous()):
+            raise ValueError(f"k_full / v_full must be contiguous {shape} "
+                             f"{q.dtype} tensors on {q.device}")
+        stages.append(buf)
+    scale = dh ** -0.5 if scale is None else scale
+    offs = torch.tensor(_sp_offsets(world, m, row_offset, col_offset),
+                        dtype=torch.int32).to(q.device)
+    out = torch.empty_like(q)
+    lse = (torch.empty((world, H, m), dtype=torch.float32, device=q.device)
+           if return_partials else None)
+    flags = _signal.flags(q.device, SP_AG_ATTN.name, world * world * H)
+    ticket = torch.empty(1, dtype=torch.int32, device=q.device)
+    err = _build.lib().tdt_sp_ag_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), stages[0].data_ptr(),
+        stages[1].data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), offs.data_ptr(),
+        flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(q.device),
+        world, H, m, m_kv, dh, int(causal), float(scale), code,
+        producer_delay_ns, _build.stream_ptr(q))
+    _build.check(err, "tdt_sp_ag_attn")
+    SP_AG_ATTN.launches += 1
+    return out, lse, stages[0], stages[1]
+
+
+def sp_ag_attention_device(q_local, k_local, v_local, *, world: int = 1,
+                           causal: bool = True, scale: float | None = None,
+                           row_offset=None, col_offset=None,
+                           return_partials: bool = False):
+    """SP prefill attention with the KV allgather overlapped (JAX :147).
+
+    At world 1, q/k/v_local (H, m, dh): without partials or offsets the
+    dense attention in torch ops (``_single_device_attn``, as JAX uses
+    ``jnp``), else the kernel path over a stack of one. At world > 1 every
+    rank's shard stacked, q (world, H, m, dh), k/v (world, H, m_kv, dh):
+    each rank's q rows attended over every rank's keys, causal by global
+    position. ``row_offset`` / ``col_offset``: each rank's first global q
+    row (default r m) and its gathered keys' first global column (default
+    0), an int for every rank or one per rank. Returns out (world, H, m,
+    dh), and with ``return_partials`` also the lse (world, H, m) f32: the
+    kernel on CUDA tensors, the plain version on CPU ones."""
+    H, m, dh = q_local.shape[-3:]
+    scale = dh ** -0.5 if scale is None else scale
+    if world == 1 and q_local.dim() == 3:
+        if not return_partials and row_offset is None and col_offset is None:
+            return _single_device_attn(q_local, k_local, v_local,
+                                       causal=causal, scale=scale)
+        res = sp_ag_attention_device(
+            q_local[None], k_local[None], v_local[None], world=1,
+            causal=causal, scale=scale, row_offset=row_offset,
+            col_offset=col_offset, return_partials=return_partials)
+        return (res[0][0], res[1][0]) if return_partials else res[0]
+    if q_local.dim() != 4 or q_local.shape[0] != world:
+        raise ValueError(f"sp_ag_attention_device at world {world} takes "
+                         f"every rank's shard stacked, (world, H, m, dh), "
+                         f"got {tuple(q_local.shape)}")
+    kw = dict(causal=causal, scale=scale, row_offset=row_offset,
+              col_offset=col_offset, return_partials=return_partials)
+    if q_local.is_cuda:
+        out, lse = sp_ag_attention_cuda(q_local.contiguous(),
+                                        k_local.contiguous(),
+                                        v_local.contiguous(), **kw)[:2]
+        return (out, lse) if return_partials else out
+    return sp_ag_attention_ref(q_local, k_local, v_local, **kw)
+
+
+def sp_ag_attention_2d_device(*args, **kwargs):
+    """JAX :240: the intra-slice overlap kernel plus a slice-level ring over
+    a dcn axis. Not ported: the inter-slice leg needs NCCL across cards
+    (see ROADMAP.md)."""
+    raise NotImplementedError("sp_ag_attention_2d_device (SP prefill over a "
+                              "dcn axis) is not ported: see ROADMAP.md")

@@ -8,7 +8,8 @@ estimates that pick a method (``est_oneshot_all_reduce`` :204,
 ring terms they build on), the all-to-all's ``wire_bytes_all_to_all``
 (:263) and ``est_push_all_gather`` (:160), the reduce-scatter's
 ``est_oneshot_reduce_scatter`` (:193) and ``wire_bytes_reduce_scatter``
-(:246) with ``wire_bytes_all_gather`` (:239), and the bytes and operations
+(:246) with ``wire_bytes_all_gather`` (:239), the low-latency allgather's
+``est_ll_all_gather`` (:170), and the bytes and operations
 that the collective loopbacks and the multi-rank kernels must move or do
 (the least, for their bounds). The
 table holds published data-sheet numbers of the cards the port runs on. An
@@ -249,6 +250,17 @@ def est_push_all_gather(nbytes: int, world: int,
     return _push_bandwidth_term(nbytes, world, hw) + hw.hop_lat + barrier
 
 
+def est_ll_all_gather(nbytes: int, world: int,
+                      hw: Hardware | None = None) -> float:
+    """Low-latency allgather of one ``nbytes`` shard (JAX :170): the
+    direct push without the entry barrier (the staging persists), plus the
+    copy of the world - 1 staged shards into the output through device
+    memory."""
+    hw = hw or detect_hardware()
+    staging_copy = (world - 1) * nbytes * 2 / hw.hbm_bw
+    return _push_bandwidth_term(nbytes, world, hw) + hw.hop_lat + staging_copy
+
+
 # -- the multi-rank kernels' own work (the whole world's, on one card) -----
 
 
@@ -321,3 +333,46 @@ def reduce_scatter_bytes(world: int, nbytes: int) -> int:
     rank: every rank's contribution read once and its nbytes / world
     segment of the sum written once."""
     return world * nbytes + nbytes
+
+
+def all_gather_bytes(world: int, shard_nbytes: int) -> int:
+    """Least bytes of an allgather of one ``shard_nbytes`` shard per rank:
+    every shard read once and every rank's gathered copy (world shards)
+    written once, (world + world^2) shards (staging is scratch)."""
+    return (world + world * world) * shard_nbytes
+
+
+def sp_attention_pairs(world: int, m: int, m_kv: int, causal: bool,
+                       row_offsets=None, col_offsets=None) -> int:
+    """(q row, key column) pairs the SP prefill's mask keeps over every
+    rank, per head: rank r's m rows at global positions ``row_offsets[r] +
+    i`` (default r m) against the world m_kv gathered columns at ``col +
+    j`` (default col 0). Unmasked: world m world m_kv. Causal: the pairs
+    with column <= row, which is S (S + 1) / 2 for the aligned S = world m
+    = world m_kv sequence."""
+    n_cols = world * m_kv
+    if not causal:
+        return world * m * n_cols
+    total = 0
+    for r in range(world):
+        row0 = r * m if row_offsets is None else int(row_offsets[r])
+        col0 = 0 if col_offsets is None else int(col_offsets[r])
+        for i in range(m):
+            total += min(max(row0 + i - col0 + 1, 0), n_cols)
+    return total
+
+
+def sp_attention_flops(heads: int, dh: int, pairs: int) -> int:
+    """Operations of the SP prefill: a multiply-add for q.k and one for p.v
+    over every kept (row, column) pair of every head, 4 heads dh pairs (not
+    JAX's unmasked ``cost_estimate``, sp_attention.py:225)."""
+    return 4 * heads * dh * pairs
+
+
+def sp_attention_bytes(world: int, heads: int, m: int, m_kv: int, dh: int,
+                       itemsize: int, partials: bool = False) -> int:
+    """Least bytes of the SP prefill over every rank: q, k and v read once,
+    out written once (and the f32 lse when partials are returned); the
+    gathered K/V staging is scratch."""
+    nbytes = world * heads * (2 * m + 2 * m_kv) * dh * itemsize
+    return nbytes + (4 * world * heads * m if partials else 0)

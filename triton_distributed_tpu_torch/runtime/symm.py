@@ -1,0 +1,64 @@
+"""Persistent workspaces: what the LL allgather needs of the symmetric heap.
+
+Counterpart of ``triton_distributed_tpu/runtime/symm.py`` (:34-85). There
+a workspace is one array sharded over a mesh axis, each device owning an
+identically laid out block that peers address by device id. Here the
+ranks are simulated on one card, so a workspace is one tensor of shape
+``(world, *local_shape)``, rank r's block at index r, allocated once per
+key and reused: the LL allgather's staging must outlive every call, since
+peers push into it without an entry barrier.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from triton_distributed_tpu_torch.runtime.device import resolve_device
+
+
+@dataclasses.dataclass
+class SymmetricWorkspace:
+    """A persistent rank-stacked buffer ``array[world, *local_shape]``,
+    rank r owning block ``[r]``."""
+
+    name: str
+    array: torch.Tensor
+    axis: str
+
+    @property
+    def local_shape(self) -> tuple[int, ...]:
+        return tuple(self.array.shape[1:])
+
+    def zero(self) -> "SymmetricWorkspace":
+        self.array.zero_()
+        return self
+
+
+_REGISTRY: dict[tuple, SymmetricWorkspace] = {}
+
+
+def get_workspace(name: str, local_shape, dtype, *, world: int,
+                  axis: str = "tp", zero: bool = False,
+                  device=None) -> SymmetricWorkspace:
+    """Get or create the workspace of this key: a zeroed ``(world,
+    *local_shape)`` tensor on ``device`` (the card unless named). The same
+    key returns the same object; ``zero`` zeroes an existing one."""
+    dev = resolve_device(device)
+    key = (name, world, tuple(local_shape), dtype, axis, dev)
+    ws = _REGISTRY.get(key)
+    if ws is None:
+        ws = SymmetricWorkspace(
+            name, torch.zeros((world, *local_shape), dtype=dtype, device=dev),
+            axis)
+        _REGISTRY[key] = ws
+    elif zero:
+        ws.zero()
+    return ws
+
+
+def clear_workspaces() -> None:
+    """Drop every registered workspace (their memory returns to the
+    allocator once no caller holds them)."""
+    _REGISTRY.clear()
