@@ -1520,7 +1520,7 @@ def device_profile(phase: str, label: str, fn, n: int):
 
 # -- phase 4 -----------------------------------------------------------------
 
-def phase_times(inputs, tg, tsp):
+def phase_times(inputs, tg, tsp, card):
     import torch.nn.functional as F
 
     timer = Timer("cuda")
@@ -1572,16 +1572,26 @@ def phase_times(inputs, tg, tsp):
     nbytes = (2 * keys * HKV * DH * 2 + B * HQ * DH * 2
               + B * HQ * (DH + 1) * 4)
     t_b, by = bound_ms(4 * HQ * DH * keys, nbytes)
+    t_d = kernel_device_ms(lambda: tsp.flash_decode_local(
+        qd, kd, vd, kv_len=kv_len, kv_layout="bshd"), "flash_decode_kernel")
+    t_ld = call_device_ms(lambda: F.scaled_dot_product_attention(
+        qdt, kdt, vdt, attn_mask=mask, enable_gqa=True))
     rows["flash_decode"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                 bound_ms=t_b, bound_by=by)
-    say(f"phase 4: flash_decode B={B} S={S} kv_len {DECODE_KV_LENS} bshd: "
-        f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound "
-        f"{t_b:.4f} ms ({by})")
+    say(f"phase 4: flash_decode B={B} S={S} kv_len {DECODE_KV_LENS} bshd "
+        f"({tsp.decode_splits(S)} splits): kernel {t_k:.4f} ms (device alone "
+        f"{t_d:.4f}), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms (device alone "
+        f"{t_ld:.4f}), kernel / sdpa {t_k / t_l:.3f} (device alone "
+        f"{t_d / t_ld:.3f}), bound {t_b:.4f} ms ({by}) [{card}]")
     return rows
 
 
-def paged_times(inputs, tpa, sp_gather):
-    """Phase 4 for the paged kernel: each case and pool dtype. The library
+def paged_times(inputs, tpa, sp_gather, card):
+    """Phase 4 for the paged kernel: each case and pool dtype. The
+    record's kernel time is one ``paged_attention(**case)`` call, its slots
+    built inside the call. The decode also prints, labelled apart, the call
+    a serving step makes in every layer: ``paged_attention_slots`` on the
+    slots the step built once before its first layer. The library
     yardstick is SDPA over the ALREADY GATHERED contiguous view (the gather
     and the dequantization are not timed): no PyTorch call reads a paged
     pool. The bound counts each live slot's K/V rows (and scales) once, q
@@ -1625,9 +1635,31 @@ def paged_times(inputs, tpa, sp_gather):
         t_b, by = bound_ms(4 * dh * Hq * pairs, nbytes)
         rows[(name, kv)] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                 bound_ms=t_b, bound_by=by)
+        # The decode is the split-KV kernel (flash_decode.cuh): its device
+        # time alone, the per-layer call on prebuilt slots, and the ratios
+        # of each to the library.
+        extra = lib_extra = ""
+        if L == 1:
+            slots = tpa.paged_slots(c["block_tables"], c["kv_lens"], L,
+                                    q_lens=c["q_lens"],
+                                    slot_mask=c["slot_mask"])
+            scales = {k: c[k] for k in ("k_scale", "v_scale") if k in c}
+            layer = lambda: tpa.paged_attention_slots(
+                c["q"], c["k_pool"], c["v_pool"], slots, **scales)
+            t_s = timer(layer, reps=20)
+            t_d = kernel_device_ms(layer, "flash_decode_kernel")
+            t_ld = call_device_ms(lambda: F.scaled_dot_product_attention(
+                qt, views[0], views[1], attn_mask=mask, enable_gqa=True))
+            splits = tpa.paged_decode_splits(c["block_tables"], PAGED["bs"])
+            extra = (f" (device alone {t_d:.4f}, {splits} splits), "
+                     f"kernel / sdpa {t_k / t_l:.3f} (device alone "
+                     f"{t_d / t_ld:.3f}); per-layer paged_attention_slots on "
+                     f"prebuilt slots {t_s:.4f} ms, / sdpa {t_s / t_l:.3f}")
+            lib_extra = f" (device alone {t_ld:.4f})"
         say(f"phase 4: paged_attention {name} L={L} {kv or 'bf16'} pool: "
-            f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa on the gathered "
-            f"view {t_l:.4f} ms, bound {t_b:.4f} ms ({by})")
+            f"kernel {t_k:.4f} ms{extra}, plain {t_p:.4f} ms, sdpa on the "
+            f"gathered view {t_l:.4f} ms{lib_extra}, bound {t_b:.4f} ms "
+            f"({by}) [{card}]")
     # The record's row: the bf16 pool's decode and mixed steps together.
     bf16 = [rows[(name, None)] for name in PAGED_CASES]
     out = {key: sum(r[key] for r in bf16)
@@ -2035,6 +2067,47 @@ def kernel_device_ms(fn, kernel: str, n: int = 20) -> float:
             f"recorded no launch in 3 sessions)")
         return float("nan")
     return sum(ev.self_device_time_total for ev in evs) / seen / 1e3
+
+
+def call_device_ms(fn, n: int = 20) -> float:
+    """Mean device time of one call of fn (a library call: every kernel it
+    launches, its own fills and memsets included), each call after an L2
+    flush, from torch.profiler's kernel records less the flush's fill (the
+    only uint8 fill). The profiler may miss a few records at a session's
+    start (seen late in a run of many sessions), so each kernel's mean is
+    over the launches it recorded, times its launches per call (its count
+    over n, rounded); a session whose flushes or kernels were recorded too
+    seldom for that (a count more than a quarter of n from a whole number
+    of launches per call) is run again, at most three times in all, and
+    then the time is not measured (NaN). Only reports a time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        flush_key = "FillFunctor<unsigned char>"
+        fills = sum(ev.count for ev in evs if flush_key in ev.key)
+        own = [ev for ev in evs if flush_key not in ev.key]
+        whole = 4 * abs(fills - n) <= n and bool(own)
+        per_call = 0.0
+        for ev in own:
+            k = round(ev.count / n)
+            whole = whole and k >= 1 and 4 * abs(ev.count - k * n) <= n
+            per_call += k * ev.self_device_time_total / ev.count
+        if whole:
+            return per_call / 1e3
+        say(f"the profiler lost records of a library call ({fills} of {n} "
+            f"flushes; session {attempt + 1} of 3)")
+    return float("nan")
 
 
 def queue_after(x, chunk_rows):
@@ -2457,6 +2530,9 @@ def phase_tp_kernels(gen, kernels, card):
                            "ag_gemm_kernel", n=10)
     t_p = timer(lambda: tg.ag_gemm_ref(a, b, cols=n), reps=3)
     t_l = timer(lambda: torch.matmul(gathered, b), reps=10)
+    say(f"phase 7: ag_gemm (wgmma tile N = 128, TMA) at ({w}, {m}, {K}) x "
+        f"({w}, {K}, {n}): kernel {t_k:.4f} ms, device alone {t_d:.4f} ms, "
+        f"library {t_l:.4f} ms, kernel / library {t_k / t_l:.3f} [{card}]")
     t_b, by = bound_ms(pm.ag_gemm_flops(w, m, K, n),
                        pm.ag_gemm_bytes(w, m, K, n, 2))
     rows["ag_gemm"] = dict(ms=t_k, device_ms=t_d, plain_ms=t_p,
@@ -3182,6 +3258,20 @@ def phase_moe_tp(gen, kernels, card):
                           library_ms=timer(lib, reps=10), bound_ms=t_b,
                           bound_by=by)
         free_card()
+    r = rows["ag_group_gemm"]
+    # The floor with the simulated link's staging kept: the bound's bytes
+    # plus every rank's staging written once (read back from L2).
+    staging_bytes = w * w * MOE_E * cap * MOE_D * 2
+    floor, _ = bound_ms(0, pm.ag_group_gemm_bytes(w, MOE_E, cap, MOE_D, fl,
+                                                  2) + staging_bytes)
+    t_ld = call_device_ms(lambda: torch.matmul(gathered, w_up), n=10)
+    say(f"phase 9: ag_group_gemm prefill (256 x 96 wgmma tile, TMA): kernel "
+        f"{r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms (device alone {t_ld:.4f}), kernel / "
+        f"library {r['ms'] / r['library_ms']:.3f} (device alone "
+        f"{r['device_ms'] / t_ld:.3f}); floor with the staging kept "
+        f"{floor:.4f} ms ({staging_bytes / 1e9:.3f} GB of staging written "
+        f"once) [{card}]")
     full, _ = bound_ms(pm.group_gemm_flops(w, w * MOE_E * cap, MOE_D, fl),
                        pm.ag_group_gemm_bytes(w, MOE_E, cap, MOE_D, fl, 2))
     say(f"phase 9: the prefill grids hold {live} of {w * MOE_E * cap} rows "
@@ -3195,18 +3285,27 @@ def phase_moe_tp(gen, kernels, card):
     dact = torch.nn.functional.silu(tmo.ag_group_gemm_cuda(
         dgrids, wu)[0].float()).to(torch.bfloat16)
     dcap = MT_DECODE[1]
-    for name, run, nbytes in (
+    dgathered = dgrids.transpose(0, 1).reshape(MOE_E, w * dcap, MOE_D)
+    for name, run, nbytes, lib in (
             ("ag_group_gemm", lambda: tmo.ag_group_gemm_cuda(dgrids, wu),
-             pm.ag_group_gemm_bytes(w, MOE_E, dcap, MOE_D, fl, 2)),
+             pm.ag_group_gemm_bytes(w, MOE_E, dcap, MOE_D, fl, 2),
+             lambda: torch.matmul(dgathered, w_up)),
             ("group_gemm_rs", lambda: tmo.group_gemm_rs_cuda(dact, wd),
-             pm.group_gemm_rs_bytes(w, MOE_E, dcap, MOE_D, fl, 2))):
+             pm.group_gemm_rs_bytes(w, MOE_E, dcap, MOE_D, fl, 2), None)):
         t_b, by = bound_ms(pm.group_gemm_flops(w, w * MOE_E * dcap, MOE_D,
                                                fl), nbytes)
-        say(f"phase 9: {name} at the decode shape (capacity {dcap}): kernel "
-            f"{timer(run, reps=20):.4f} ms, device alone "
-            f"{kernel_device_ms(run, f'{name}_kernel'):.4f} ms, bound "
-            f"{t_b:.4f} ms ({by}: whole grids, every weight shard) [{card}]")
-    del grids, gathered, act, dgrids, dact
+        t_k = timer(run, reps=20)
+        line = (f"phase 9: {name} at the decode shape (capacity {dcap}): "
+                f"kernel {t_k:.4f} ms, device alone "
+                f"{kernel_device_ms(run, f'{name}_kernel'):.4f} ms, bound "
+                f"{t_b:.4f} ms ({by}: whole grids, every weight shard)")
+        if lib is not None:
+            t_l = timer(lib, reps=20)
+            line += (f", library {t_l:.4f} ms (torch.matmul of the gathered "
+                     f"decode grids with the unsharded w_up), kernel / "
+                     f"library {t_k / t_l:.3f}")
+        say(f"{line} [{card}]")
+    del grids, gathered, act, dgrids, dact, dgathered
     free_card()
     for label, x in x_rs.items():
         m, n = x.shape[1] // w, x.shape[2]
@@ -3577,6 +3676,35 @@ def phase_sp(gen, kernels, card):
         library_ms=timer(lambda: xl.reshape(1, -1, feat).expand(
             w, -1, -1).contiguous(), reps=20),
         bound_ms=t_b, bound_by=by)
+    # The SP decode's one flash_decode launch over every rank's shard (the
+    # split-KV kernel redesigned in this slice), at kv_len SP_KV_LENS[0].
+    lens = _local_lens(SP_KV_LENS[0], m_kv)[:, None].expand(
+        w, SP_B).reshape(-1).contiguous()
+    qf = q_dec.expand(w, *q_dec.shape).reshape(w * SP_B, SP_HQ, SP_DH)
+    kf = k_dec.reshape(w * SP_B, SP_HKV, m_kv, SP_DH)
+    vf = v_dec.reshape(w * SP_B, SP_HKV, m_kv, SP_DH)
+    run_fd = lambda: tsp.flash_decode_cuda(qf, kf, vf, kv_len=lens)
+    mask = (torch.arange(m_kv, device="cuda")[None]
+            < lens[:, None])[:, None, None, :]
+    t_k, t_l = timer(run_fd, reps=20), timer(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf[:, :, None], kf, vf, attn_mask=mask, enable_gqa=True),
+        reps=20)
+    t_d = kernel_device_ms(run_fd, "flash_decode_kernel")
+    t_ld = call_device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qf[:, :, None], kf, vf, attn_mask=mask, enable_gqa=True))
+    keys = int(lens.sum())
+    t_b, by = bound_ms(4 * SP_HQ * SP_DH * keys,
+                       2 * keys * SP_HKV * SP_DH * 2 + qf.numel() * 2
+                       + w * SP_B * SP_HQ * (SP_DH + 1) * 4)
+    say(f"phase 10: SP decode's flash_decode over {w} x {SP_B} rows of "
+        f"{m_kv} positions ({tsp.flash_decode_splits(kf)} splits), kv_len "
+        f"{SP_KV_LENS[0]}: kernel {t_k:.4f} ms, device alone {t_d:.4f} ms, "
+        f"sdpa with a mask {t_l:.4f} ms (device alone {t_ld:.4f}), kernel / "
+        f"sdpa {t_k / t_l:.3f} (device alone {t_d / t_ld:.3f}), bound "
+        f"{t_b:.4f} ms ({by}) [{card}]")
+    del qf, kf, vf, mask
     pairs = pm.sp_attention_pairs(w, SP_M, SP_M, True)
     t_b, by = bound_ms(pm.sp_attention_flops(SP_HQ, SP_DH, pairs),
                        pm.sp_attention_bytes(w, SP_HQ, SP_M, SP_M, SP_DH, 2))
@@ -3682,9 +3810,9 @@ def main() -> int:
     free_card()
     say(f"phase 4: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
         f"allocated (phase 1's inputs)")
-    times = phase_times(inputs, tg, tsp)
+    times = phase_times(inputs, tg, tsp, card)
     times["paged_attention"] = paged_times(paged_inputs, tpa,
-                                           tsp.paged_gather_kv)
+                                           tsp.paged_gather_kv, card)
     times["grouped_gemm"] = grouped_times(tmu, served_caps)
     free_card()
     overlap_launches, overlap_err, overlap_times = phase_overlap(

@@ -218,6 +218,132 @@ def test_paged_attention_kernel_matches_plain(cuda, case, dtype, kv):
     torch.testing.assert_close(got[live], want[live], atol=tol, rtol=tol)
 
 
+# -- the split-KV decode (csrc/flash_decode.cuh), contiguous and paged -------
+
+SPLIT = tsp.DECODE_SPLIT
+
+
+def _cpu(c):
+    return {k: (t.cpu() if isinstance(t, torch.Tensor) else t)
+            for k, t in c.items()}
+
+
+@pytest.mark.parametrize("kv", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_at_split_edges(cuda, dtype, kv):
+    """kv_len 0, 1, split - 1, split, split + 1 and a full 4,096-key table
+    (16 splits; the short slots' later splits hold nothing) against
+    paged_attention_ref; kv_len 0 gives exact zeros."""
+    lens = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1, 4096]
+    geo = dict(B=6, L=1, Hq=16, Hkv=8, dh=128, bs=16, max_blocks=256,
+               kv_lens=lens, q_lens=[1] * 6)
+    c = _paged_case(3, dtype=dtype, kv=kv, **geo)
+    _build.reset_counts()
+    got = tpa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_ATTENTION.launches == 1
+    want = tpa.paged_attention_ref(**_cpu(c)).to(cuda)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    tol = TOL[dtype]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_paged_decode_over_a_32768_position_table(cuda):
+    """B = 2 over 2,048 blocks of 16 (128 splits), one slot full."""
+    geo = dict(B=2, L=1, Hq=8, Hkv=2, dh=128, bs=16, max_blocks=2048,
+               kv_lens=[32768, 20001], q_lens=[1, 1])
+    c = _paged_case(4, dtype=torch.bfloat16, **geo)
+    got = tpa.paged_attention(**c)
+    torch.cuda.synchronize()
+    want = tpa.paged_attention_ref(**_cpu(c)).to(cuda)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_contiguous_and_paged_decode_agree_bit_for_bit(cuda, g):
+    """f32 q over the same keys, a paged pool and its gathered contiguous
+    copy (NaN past every kv_len in both): one kernel, one split count, so
+    the same bits; and a second call of each gives the same bits again."""
+    geo = dict(B=4, L=1, Hq=2 * g, Hkv=2, dh=128, bs=16, max_blocks=64,
+               kv_lens=[0, 1, 300, 1024], q_lens=[1] * 4)
+    c = _paged_case(5, dtype=torch.float32, **geo)
+    paged = tpa.paged_attention(**c)[:, 0]
+    k = tsp.paged_gather_kv(c["k_pool"], c["block_tables"])
+    v = tsp.paged_gather_kv(c["v_pool"], c["block_tables"])
+    out, lse = tsp.flash_decode_cuda(c["q"][:, 0], k, v, kv_len=c["kv_lens"],
+                                     kv_layout="bshd")
+    paged2 = tpa.paged_attention(**c)[:, 0]
+    out2, lse2 = tsp.flash_decode_cuda(c["q"][:, 0], k, v,
+                                       kv_len=c["kv_lens"], kv_layout="bshd")
+    torch.cuda.synchronize()
+    assert tpa.paged_decode_splits(c["block_tables"], 16) == \
+        tsp.flash_decode_splits(k, "bshd") == 4
+    assert torch.equal(out, paged)
+    assert torch.equal(paged2, paged)
+    assert torch.equal(out2, out) and torch.equal(lse2, lse)
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isneginf(lse[0]).all()
+    want, want_lse = tsp.flash_decode_ref(c["q"][:, 0], k, v,
+                                          kv_len=c["kv_lens"],
+                                          kv_layout="bshd")
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=1e-5, rtol=1e-5)
+
+
+def test_split_decode_leaves_its_arrival_counters_at_zero(cuda):
+    """The last block of each (row, kv head) resets its counter: after
+    calls of both instantiations every arrival counter reads 0 again, so
+    the host never resets them (_signal.arrivals)."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    geo = dict(B=3, L=1, Hq=8, Hkv=2, dh=128, bs=16, max_blocks=64,
+               kv_lens=[0, 700, 1024], q_lens=[1] * 3)
+    c = _paged_case(6, dtype=torch.bfloat16, **geo)
+    k = tsp.paged_gather_kv(c["k_pool"], c["block_tables"])
+    v = tsp.paged_gather_kv(c["v_pool"], c["block_tables"])
+    for _ in range(2):
+        tpa.paged_attention(**c)
+        tsp.flash_decode_cuda(c["q"][:, 0], k, v, kv_len=c["kv_lens"],
+                              kv_layout="bshd")
+    torch.cuda.synchronize()
+    dev = c["q"].device
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    for name in ("paged_attention_arrivals", "flash_decode_arrivals"):
+        assert (*key, name) in _signal._ARRIVALS, name  # the launches' own
+        cells = _signal.arrivals(dev, name, 3 * 2)
+        assert int(cells.abs().sum()) == 0, name
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [8, 72, 128])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_split_decode_every_group_and_head_dim(cuda, g, dh, dtype):
+    """Every GQA group the kernel is built for, head dims that fill a
+    16-byte vector, need a narrower one (int8 at dh 72) or a single lane,
+    over three splits: the paged kernel for each pool type and the
+    contiguous one against their plain versions."""
+    lens = [0, 5, 300, 640]
+    for kv in (None, "int8", "fp8"):
+        geo = dict(B=4, L=1, Hq=2 * g, Hkv=2, dh=dh, bs=16, max_blocks=40,
+                   kv_lens=lens, q_lens=[1] * 4)
+        c = _paged_case(6, dtype=dtype, kv=kv, **geo)
+        got = tpa.paged_attention(**c)
+        torch.cuda.synchronize()
+        want = tpa.paged_attention_ref(**_cpu(c)).to(cuda)
+        tol = TOL[dtype]
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    gen = torch.Generator(device=cuda).manual_seed(dh * g)
+    q = _randn(gen, 4, 2 * g, dh, dtype=dtype)
+    k = _randn(gen, 4, 2, 640, dh, dtype=dtype)
+    v = _randn(gen, 4, 2, 640, dh, dtype=dtype)
+    kvl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    out, lse = tsp.flash_decode_cuda(q, k, v, kv_len=kvl)
+    want, want_lse = tsp.flash_decode_ref(q, k, v, kv_len=kvl)
+    torch.testing.assert_close(out, want, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse[1:], want_lse[1:], atol=tol, rtol=tol)
+
+
 def test_paged_attention_cuda_rejects_mismatched_pools(cuda):
     c = _paged_case(2, **PAGED_CASES["decode"])
     with pytest.raises(TypeError, match="scales"):
@@ -607,7 +733,7 @@ def _exact_operands(gen, world, M, k, N, dtype, cuda):
     (8, 64, 256, 320, torch.bfloat16),
     (8, 16, 128, 200, torch.float32),
     (8, 1, 96, 72, torch.float32),
-    (3, 40, 72, 130, torch.bfloat16),      # a world that is not 2^k
+    (3, 40, 72, 136, torch.bfloat16),      # a world that is not 2^k
     (3, 21, 33, 77, torch.float32)])       # ragged, unvectorised
 def test_ag_gemm_kernel_matches_plain(cuda, world, m, K, n, dtype):
     """Every rank's product against the plain version (tolerance of the
@@ -625,6 +751,25 @@ def test_ag_gemm_kernel_matches_plain(cuda, world, m, K, n, dtype):
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
     assert torch.equal(out1, got)
     assert torch.equal(staged, want_staged)
+
+
+def test_wgmma_tiles_refuse_rows_tma_cannot_read(cuda):
+    """bf16 runs on TMA and wgmma: rows that are no whole number of
+    16-byte units raise before any launch (f32 takes them)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    a = _randn(gen, 3, 40, 72, dtype=torch.bfloat16)
+    b = _randn(gen, 3, 72, 130, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        tg.ag_gemm_cuda(a, b, cols=130)
+    grids = _randn(gen, 4, 2, 8, 33, dtype=torch.bfloat16)
+    w = _randn(gen, 4, 2, 33, 96, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="TMA"):
+        tmo.ag_group_gemm_cuda(grids, w)
+    out, _ = tg.ag_gemm_cuda(a.float(), b.float(), cols=130)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tg.ag_gemm_ref(a.float(), b.float(),
+                                                   cols=130)[0],
+                               atol=1e-4, rtol=1e-4)
 
 
 def test_ag_gemm_column_split_runs_the_tail_per_rank(cuda):
@@ -925,6 +1070,7 @@ def _grids(gen, world, E, cap, d, dtype, cuda, exact=False):
     (8, 16, 8, 256, 96, torch.bfloat16),      # decode-like, f 96 < tile
     (8, 4, 128, 128, 96, torch.bfloat16),     # one source a row tile
     (4, 6, 40, 72, 136, torch.bfloat16),      # rows span sources
+    (8, 5, 128, 72, 136, torch.bfloat16),     # K tail, two column tiles
     (3, 5, 21, 33, 77, torch.float32)])       # ragged, unvectorised
 def test_ag_group_gemm_kernel_matches_plain(cuda, world, E, cap, d, f,
                                             dtype):

@@ -26,67 +26,42 @@
 //   itself (a device-local copy runs on the SMs: ag_gemm_loopback.cu), and
 //   the ranks are a field of each item, not blocks of a cooperative launch:
 //   one persistent grid no larger than the card holds at once (gemm_tile.cuh
-//   persistent_blocks) hands out items by an atomic ticket, producers
-//   first. Producer item (s, d, c) copies chunk c of a[(d + s) mod world]
-//   into staging[d] and raises flag (d, src, c) to the call's epoch; items
-//   of step s come before those of step s + 1. Then the consumer tiles,
-//   TileOf<T>::M x N outputs of one rank over its gathered A in absolute
-//   rows (a tile may span segments, so at m = 1 one row tile covers every
-//   segment and B is read once), handed out rank by rank (the blocks
-//   running at once then share one rank's B in L2), each rank's in its
-//   segment order: its step j is the row tile (tile of row d m + j) mod
-//   tiles. A consumer's thread 0 waits on the flag of every chunk its rows
-//   touch (first touch), the block meets at a barrier, and the tile runs
-//   gemm_tile.cuh's product_tile over the staged rows, read through L2
-//   only. A producer never waits and a block takes a ticket only while it
-//   runs, so every flag a consumer waits on belongs to a running block: no
+//   persistent_blocks) hands out items by an atomic ticket. The items are
+//   ag_gemm.cuh's, with one expert: rank d's producers (chunk c of a[(d +
+//   s) mod world] into staging[d] by bulk copies, flag (d, src, c) raised
+//   to the call's epoch) are handed out ahead of rank d's consumer tiles,
+//   wgmma_tile.cuh's 128 x 128 wgmma tiles fed by TMA over the rank's
+//   gathered A in absolute rows (a tile may span segments, so at m = 1 one
+//   row tile covers every segment and B is read once), each rank's in its
+//   segment order. A consumer's thread 0 waits on the flag of every chunk
+//   its rows touch (first touch) and only then issues the TMA loads of the
+//   staged rows. Every flag waited on belongs to an earlier ticket: no
 //   deadlock, whatever the dispatch order. delay_ns holds every producer
 //   item back before its copy (a test of the waits: the result must not
-//   change). The items are ag_gemm.cuh's, with one expert.
+//   change). f32 keeps the SIMT tile, full f32.
 #include "ag_gemm.cuh"
 
 namespace {
 
-using tdt::gemm::bf16;
-using tdt::gemm::TileOf;
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(TileOf<T>::threads)
-    ag_gemm_kernel(const T* __restrict__ A, T* S, const T* __restrict__ B,
-                   T* __restrict__ C, uint32_t* flags, int* ticket,
-                   uint32_t epoch, tdt::ag::Geometry g,
-                   unsigned long long delay_ns) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  tdt::ag::run_items<T, VEC>(A, S, B, C, flags, ticket, epoch, g, delay_ns,
-                             smem);
-}
+TDT_AG_KERNELS(ag_gemm)
 
 }  // namespace
 
 // a (world, m, K), b (world, K, n), out (world, world m, cols), staging
 // (world, world, m, K); flags (world x world x ceil(m / chunk_rows), uint32,
 // raised to epoch); ticket (one int32 of scratch, zeroed here on the
-// stream); dtype 0 f32, 1 bf16; delay_ns holds every producer back (0 in
-// use).
+// stream); dtype 0 f32, 1 bf16 (K and n multiples of 8, 16-byte aligned
+// pointers); delay_ns holds every producer back (0 in use).
 extern "C" int tdt_ag_gemm(const void* a, void* staging, const void* b,
                            void* out, void* flags, void* ticket,
                            unsigned epoch, long long world, long long m,
                            long long K, long long n, long long cols,
                            long long chunk_rows, int dtype,
                            unsigned long long delay_ns, void* stream) {
-  tdt::ag::Geometry g;
-  if (!staging || !tdt::ag::make_geometry(world, 1, m, K, n, cols, 1,
-                                          chunk_rows, dtype, &g))
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tdt::kF32)
-    return tdt::ag::launch<float>(ag_gemm_kernel<float, true>,
-                                  ag_gemm_kernel<float, false>, a, staging,
-                                  b, out, flags, ticket, epoch, g, delay_ns,
-                                  s);
-  if (dtype == tdt::kBF16)
-    return tdt::ag::launch<bf16>(ag_gemm_kernel<bf16, true>,
-                                 ag_gemm_kernel<bf16, false>, a, staging, b,
-                                 out, flags, ticket, epoch, g, delay_ns, s);
-  return cudaErrorInvalidValue;
+  return tdt::ag::launch(ag_gemm_kernel_wgmma<256, 96>,
+                         ag_gemm_kernel_wgmma<128, 96>,
+                         ag_gemm_kernel_wgmma<128, 128>, ag_gemm_kernel_f32,
+                         a, staging, b, out, flags, ticket, epoch, world, 1,
+                         m, K, n, cols, 1, chunk_rows, dtype, delay_ns,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
 // Helpers shared by the port's CUDA kernels: element conversion between the
 // storage types the kernels take (float, __nv_bfloat16, and the 1-byte KV
-// wire types int8 and fp8 e4m3) and f32, and vector loads of 8 or EPL
-// elements into f32 registers.
+// wire types int8 and fp8 e4m3) and f32, and vector loads of 8 elements
+// into f32 registers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -71,60 +71,6 @@ __device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float* out) {
   load8_bytes(p, out);
 }
 
-// Load N (1, 2 or 4) consecutive elements, aligned to N elements.
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float* out) {
-  if constexpr (N == 4) {
-    float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  } else if constexpr (N == 2) {
-    float2 a = *reinterpret_cast<const float2*>(p);
-    out[0] = a.x; out[1] = a.y;
-  } else {
-    out[0] = *p;
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* out) {
-  if constexpr (N == 4) {
-    uint2 u = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    float2 a = __bfloat1622float2(h[0]);
-    float2 b = __bfloat1622float2(h[1]);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  } else if constexpr (N == 2) {
-    float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = a.x; out[1] = a.y;
-  } else {
-    out[0] = __bfloat162float(*p);
-  }
-}
-
-template <int N, typename W>
-__device__ __forceinline__ void load_n_bytes(const W* p, float* out) {
-  static_assert(sizeof(W) == 1, "1-byte wire types only");
-  if constexpr (N == 4) {
-    uint32_t u = *reinterpret_cast<const uint32_t*>(p);
-    const W* w = reinterpret_cast<const W*>(&u);
-    out[0] = to_f32(w[0]); out[1] = to_f32(w[1]);
-    out[2] = to_f32(w[2]); out[3] = to_f32(w[3]);
-  } else if constexpr (N == 2) {
-    uint16_t u = *reinterpret_cast<const uint16_t*>(p);
-    const W* w = reinterpret_cast<const W*>(&u);
-    out[0] = to_f32(w[0]); out[1] = to_f32(w[1]);
-  } else {
-    out[0] = to_f32(*p);
-  }
-}
-template <int N>
-__device__ __forceinline__ void load_n(const int8_t* p, float* out) {
-  load_n_bytes<N>(p, out);
-}
-template <int N>
-__device__ __forceinline__ void load_n(const __nv_fp8_e4m3* p, float* out) {
-  load_n_bytes<N>(p, out);
-}
-
 // 16-byte asynchronous global -> shared copy; src_bytes 0 fills the 16
 // bytes with zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -191,12 +137,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 }  // namespace tdt

@@ -17,6 +17,16 @@
 // A kernel calls bind(b, h) once for its (batch row or slot, kv head), then
 // krow(s)/vrow(s) for a pointer to the head_dim values of key position s
 // and kscale(s)/vscale(s) for its dequantization scale (1 when unquantized).
+// PagedRows::line loads the table entry of every row it is asked for (L1
+// keeps it); the prefill's query tiles use it.
+//
+// The split-KV decode (flash_decode.cuh) reads a range of keys [s0, s1)
+// page by page instead: bind_split(s0, s1, sm), called by every thread of
+// the block (a barrier follows), copies the table entries of the range's
+// pages into shared memory, one load per page, clamped; split_line(s) is
+// then the row of key s in [s0, s1) with no table load, and
+// krow_at/vrow_at/kscale_at/vscale_at read that row. DenseRows keeps no
+// table: its line is the position itself.
 #pragma once
 
 #include "common.cuh"
@@ -45,6 +55,17 @@ struct DenseRows {
   }
   __device__ __forceinline__ float kscale(int) const { return 1.f; }
   __device__ __forceinline__ float vscale(int) const { return 1.f; }
+
+  __device__ __forceinline__ void bind_split(int, int, int*) {}
+  __device__ __forceinline__ size_t split_line(int s) const { return s; }
+  __device__ __forceinline__ const T* krow_at(size_t s) const {
+    return kb + s * ss;
+  }
+  __device__ __forceinline__ const T* vrow_at(size_t s) const {
+    return vb + s * ss;
+  }
+  __device__ __forceinline__ float kscale_at(size_t) const { return 1.f; }
+  __device__ __forceinline__ float vscale_at(size_t) const { return 1.f; }
 };
 
 template <typename T, bool QUANT>
@@ -59,6 +80,8 @@ struct PagedRows {
   int max_blocks, n_blocks, bs, Hkv, dh;
   const int* tbl;  // set by bind
   int h;
+  const int* pages;  // set by bind_split: clamped entries, shared memory
+  int page0;
 
   __device__ __forceinline__ void bind(int b, int hh) {
     tbl = tables + (size_t)b * max_blocks;
@@ -81,6 +104,33 @@ struct PagedRows {
   }
   __device__ __forceinline__ float vscale(int s) const {
     if constexpr (QUANT) return vs[line(s)];
+    return 1.f;
+  }
+
+  // The pages of keys [s0, s1), s0 < s1 <= the slot's kv_len: table
+  // entries s0 / bs .. (s1 - 1) / bs, at most (s1 - s0 - 1) / bs + 2.
+  __device__ __forceinline__ void bind_split(int s0, int s1, int* sm) {
+    page0 = s0 / bs;
+    const int n = (s1 - 1) / bs - page0 + 1;
+    for (int i = threadIdx.x; i < n; i += blockDim.x)
+      sm[i] = min(max(tbl[page0 + i], 0), n_blocks - 1);
+    pages = sm;
+  }
+  __device__ __forceinline__ size_t split_line(int s) const {
+    return ((size_t)pages[s / bs - page0] * bs + s % bs) * Hkv + h;
+  }
+  __device__ __forceinline__ const T* krow_at(size_t ln) const {
+    return k + ln * dh;
+  }
+  __device__ __forceinline__ const T* vrow_at(size_t ln) const {
+    return v + ln * dh;
+  }
+  __device__ __forceinline__ float kscale_at(size_t ln) const {
+    if constexpr (QUANT) return ks[ln];
+    return 1.f;
+  }
+  __device__ __forceinline__ float vscale_at(size_t ln) const {
+    if constexpr (QUANT) return vs[ln];
     return 1.f;
   }
 };

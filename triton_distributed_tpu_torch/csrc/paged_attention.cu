@@ -26,36 +26,50 @@
 //   g = 2) does ~4 * g * L operations per K/V element, near that line.
 //
 // What this design does about it: the block table is the only new piece.
-//   It is walked inside the kernel (kv_rows.cuh PagedRows: one table load
-//   per key row, L1-cached), so the pool bytes are read once per causal
-//   query tile and no contiguous copy of the cache is ever made. The two
-//   halves are the existing kernels, instantiated over the paged rows:
-//   L == 1 takes flash_decode.cuh (one block per (slot, kv head), the g
-//   query heads of a group share every row read); L > 1 takes
-//   flash_prefill.cuh (one block per (slot, kv head, 64-row query tile),
-//   bf16 on mma.sync at head_dim 64/128, everything else on the CUDA cores
-//   in f32). Both load only rows below each tile's causal frontier
-//   min(kv_len, kv_len - q_len + last live row + 1): table entries past it
-//   (allocator padding that may name a live sequence's block) are never
-//   followed, rows not loaded are zeros or masked by a select, and a fully
-//   masked row adds nothing to its denominator. int8/fp8 rows are
-//   dequantized as float(wire) * scale right after the load and accumulate
-//   in f32 exactly like the unquantized build. No split-KV, wgmma or TMA
-//   yet.
+//   It is walked inside the kernel, so the pool bytes are read once per
+//   causal query tile and no contiguous copy of the cache is ever made. The
+//   two halves are the existing kernels, instantiated over the paged rows
+//   (kv_rows.cuh PagedRows):
+//   - L == 1 takes flash_decode.cuh, split-KV: a grid of (ceil(S / 256),
+//     Hkv, B) blocks with S = max_blocks x block_size, a static shape (no
+//     read of kv_lens on the host), each streaming 256 keys of one (slot,
+//     kv head) with 16-byte loads, its pages' table entries loaded once
+//     into shared memory; the last block of each (slot, kv head) merges the
+//     splits' f32 partials in split order. At Qwen3-1.7B's 8 slots x 8 kv
+//     heads over 4,096 positions that is 1,024 blocks where one block per
+//     (slot, kv head) gave 64, and the longest slot no longer sets the time
+//     alone.
+//   - L > 1 takes flash_prefill.cuh (one block per (slot, kv head, 64-row
+//     query tile), bf16 on mma.sync at head_dim 64/128, everything else on
+//     the CUDA cores in f32), one table load per key row.
+//   Both load only rows below each tile's causal frontier min(kv_len,
+//   kv_len - q_len + last live row + 1): table entries past it (allocator
+//   padding that may name a live sequence's block) are never followed,
+//   rows not loaded are zeros or masked by a select, and a fully masked
+//   row adds nothing to its denominator. int8/fp8 rows are dequantized as
+//   float(wire) * scale right after the load and accumulate in f32 exactly
+//   like the unquantized build. The prefill half has no wgmma or TMA yet.
 #include "flash_decode.cuh"
 #include "flash_prefill.cuh"
 
 namespace {
 
+// Decode scratch: the split partials and arrival counters (null at one
+// split).
+struct Scratch {
+  float* part;
+  int* arrivals;
+};
+
 template <typename TQ, typename KV>
 cudaError_t run(const void* q, KV kv, void* out, const int* rows, int B,
                 int L, int Hq, int Hkv, int S, int dh, float scale,
-                cudaStream_t s) {
+                Scratch sc, cudaStream_t s) {
   if (L == 1) {
     // One query row per slot: kv_len is the middle row of `rows`.
     if (!decode::dispatch<TQ, TQ>(Hq / Hkv, q, kv, static_cast<TQ*>(out),
                                   nullptr, rows + B, 0, B, Hq, Hkv, S, dh,
-                                  scale, s))
+                                  scale, sc.part, sc.arrivals, s))
       return cudaErrorInvalidValue;
     return cudaGetLastError();
   }
@@ -69,7 +83,8 @@ cudaError_t by_pool(int kv_dtype, const void* q, const void* k,
                     const void* v, const float* ks, const float* vs,
                     const int* tables, const int* rows, void* out, int B,
                     int L, int Hq, int Hkv, int n_blocks, int bs,
-                    int max_blocks, int dh, float scale, cudaStream_t s) {
+                    int max_blocks, int dh, float scale, Scratch sc,
+                    cudaStream_t s) {
   const int S = max_blocks * bs;
   const bool quant = kv_dtype == tdt::kI8 || kv_dtype == tdt::kFP8;
   if (quant != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
@@ -77,14 +92,14 @@ cudaError_t by_pool(int kv_dtype, const void* q, const void* k,
     tdt::PagedRows<int8_t, true> kv{
         static_cast<const int8_t*>(k), static_cast<const int8_t*>(v), ks, vs,
         tables, max_blocks, n_blocks, bs, Hkv, dh};
-    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, sc, s);
   }
   if (kv_dtype == tdt::kFP8) {
     using F8 = __nv_fp8_e4m3;
     tdt::PagedRows<F8, true> kv{static_cast<const F8*>(k),
                                 static_cast<const F8*>(v), ks, vs, tables,
                                 max_blocks, n_blocks, bs, Hkv, dh};
-    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+    return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, sc, s);
   }
   // Unquantized: the pool holds q's dtype.
   const int q_code = std::is_same<TQ, float>::value ? tdt::kF32 : tdt::kBF16;
@@ -92,23 +107,31 @@ cudaError_t by_pool(int kv_dtype, const void* q, const void* k,
   tdt::PagedRows<TQ, false> kv{static_cast<const TQ*>(k),
                                static_cast<const TQ*>(v), nullptr, nullptr,
                                tables, max_blocks, n_blocks, bs, Hkv, dh};
-  return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, s);
+  return run<TQ>(q, kv, out, rows, B, L, Hq, Hkv, S, dh, scale, sc, s);
 }
 
 }  // namespace
 
+// partials ((B, Hq, splits, dh + 2) f32) and arrivals ((B, Hkv) int32,
+// zero, left zero) serve the decode (L == 1) when splits, which must be
+// ceil(max_blocks * block_size / 256), is more than 1; null otherwise.
 extern "C" int tdt_paged_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* tables, const void* rows, void* out,
     long long B, long long L, long long Hq, long long Hkv, long long n_blocks,
     long long bs, long long max_blocks, long long dh, float scale,
-    int q_dtype, int kv_dtype, void* stream) {
+    int q_dtype, int kv_dtype, void* partials, void* arrivals,
+    long long splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || L <= 0 || Hkv <= 0 || Hq % Hkv || dh <= 0 || dh > 128 ||
       dh % 8 || B > 65535 || Hkv > 65535 || L > INT32_MAX ||
       n_blocks <= 0 || bs <= 0 || max_blocks <= 0 ||
       n_blocks * bs > INT32_MAX || max_blocks * bs > INT32_MAX)
     return cudaErrorInvalidValue;
+  if (L == 1 && splits != decode::splits_of(max_blocks * bs))
+    return cudaErrorInvalidValue;
+  const Scratch sc{static_cast<float*>(partials),
+                   static_cast<int*>(arrivals)};
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* t = static_cast<const int*>(tables);
@@ -117,10 +140,10 @@ extern "C" int tdt_paged_attention(
     return by_pool<__nv_bfloat16>(kv_dtype, q, k, v, ks, vs, t, r, out,
                                   (int)B, (int)L, (int)Hq, (int)Hkv,
                                   (int)n_blocks, (int)bs, (int)max_blocks,
-                                  (int)dh, scale, s);
+                                  (int)dh, scale, sc, s);
   if (q_dtype == tdt::kF32)
     return by_pool<float>(kv_dtype, q, k, v, ks, vs, t, r, out, (int)B,
                           (int)L, (int)Hq, (int)Hkv, (int)n_blocks, (int)bs,
-                          (int)max_blocks, (int)dh, scale, s);
+                          (int)max_blocks, (int)dh, scale, sc, s);
   return cudaErrorInvalidValue;
 }

@@ -30,8 +30,12 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+# Keys of one split of the split-KV decode (csrc/flash_decode.cuh SPLIT,
+# compiled in from here; sp_attention.decode_splits counts with it).
+DECODE_SPLIT = 256
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              f"-DTDT_DECODE_SPLIT={DECODE_SPLIT}"]
 
 P, I64, I32, U32, U64, F32 = (ctypes.c_void_p, ctypes.c_longlong,
                               ctypes.c_int, ctypes.c_uint, ctypes.c_ulonglong,
@@ -48,16 +52,19 @@ SIGNATURES = {
                           I64, I64, I64, I64, I64, I64,
                           I64, I64, I64, F32, I32, P],
     # q, k, v, out, lse, kv_lens (nullable (B,) int32), kv_len,
-    # B, Hq, Hkv, S, dh, k batch/seq/head strides, scale, dtype, stream
+    # B, Hq, Hkv, S, dh, k batch/seq/head strides, scale, dtype, split
+    # partials, arrival counters (both nullable at one split), splits,
+    # stream
     "tdt_flash_decode": [P, P, P, P, P, P, I32,
                          I64, I64, I64, I64, I64, I64, I64, I64, F32, I32,
-                         P],
+                         P, P, I64, P],
     # q, k_pool, v_pool, k_scale, v_scale (nullable), tables, rows ((3, B)
     # int32: kv_len - q_len, kv_len, q_len), out, B, L, Hq, Hkv, n_blocks,
-    # block_size, max_blocks, dh, scale, q dtype, pool dtype, stream
+    # block_size, max_blocks, dh, scale, q dtype, pool dtype, the decode's
+    # split partials and arrival counters (nullable), splits, stream
     "tdt_paged_attention": [P, P, P, P, P, P, P, P,
                             I64, I64, I64, I64, I64, I64, I64, I64, F32,
-                            I32, I32, P],
+                            I32, I32, P, P, I64, P],
     # x, w, out, counts ((E,) int32), E, cap, d, f, dtype, stream
     "tdt_grouped_gemm": [P, P, P, P, I64, I64, I64, I64, I32, P],
     # a, staging (null: bare), b, out, flags, ticket, epoch, M, cols, n, K,
@@ -111,9 +118,10 @@ SIGNATURES = {
     # elements, dtype, producer delay (ns), stream
     "tdt_ring_rs": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
     # grids, staging, w, out, flags, ticket, epoch, world, E, cap, d, f,
-    # experts per producer chunk, dtype, producer delay (ns), stream
+    # experts and rows per producer chunk, dtype, producer delay (ns),
+    # stream
     "tdt_ag_group_gemm": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
-                          I64, I32, U64, P],
+                          I64, I64, I32, U64, P],
     # act, w, out, staging, own (f32), flags, ticket, epoch, world, E, cap,
     # f, d, dtype, producer delay (ns), stream
     "tdt_group_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
@@ -262,6 +270,17 @@ def reset_counts() -> None:
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                torch.float8_e4m3fn: 3}
 FLOAT_TYPES = (torch.float32, torch.bfloat16)
+
+
+def check_tma_rows(name: str, row_elems, *ts) -> None:
+    """bf16 operands of a kernel that reads them with TMA (the wgmma
+    tiles): every base 16-byte aligned and every row length in
+    ``row_elems`` a whole number of 16-byte units; raises otherwise."""
+    bad = [n for n in row_elems if n % 8]
+    if bad or any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: a bf16 call needs 16-byte aligned "
+                         f"operands and rows that are multiples of 8 "
+                         f"elements (TMA), got rows {list(row_elems)}")
 
 
 def dtype_code(t, allowed=FLOAT_TYPES) -> int:

@@ -1,15 +1,20 @@
 """Host side of ``csrc/language.cuh``'s signals: flag buffers with
-epochs, and counters zeroed on the stream.
+epochs, counters zeroed on the stream, and arrival counters that their
+kernel resets.
 
 A flag buffer is a persistent zeroed ``uint32`` array per (stream, name),
 grown on demand and never reset: each call takes a new epoch (a per-device
 counter) and its producers raise flags to that epoch, so the flags of an
 earlier call read as "not yet" to a later one; when the counter wraps, the
-device's flag buffers are zeroed first (``next_epoch``). A counter buffer (cells that
-kernels ADD to, ``SIGNAL_ADD``) is zeroed on the stream right before each
-call's launch, so nothing an earlier call added can satisfy a wait of this
-one. Calls on one stream run in order, and calls on two streams use two
-buffers, so no call's signals are raised while another's are awaited.
+device's flag buffers are zeroed first (``next_epoch``). A counter buffer
+(cells that kernels ADD to, ``SIGNAL_ADD``) is zeroed on the stream right
+before each call's launch, so nothing an earlier call added can satisfy a
+wait of this one. An arrival counter buffer (``arrivals``: cells that a
+kernel ADDs to and that the last block to arrive resets to 0, as the
+split-KV decode's merge does) is zeroed once, when it is made, and every
+launch that uses it leaves it at 0, so the host never resets it. Calls on
+one stream run in order, and calls on two streams use two buffers, so no
+call's signals are raised while another's are awaited.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 _FLAGS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
 _COUNTERS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
+_ARRIVALS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
 _EPOCH: dict[torch.device, int] = {}
 
 
@@ -43,6 +49,13 @@ def counters(device: torch.device, name: str, n: int) -> torch.Tensor:
     buf = _buffer(_COUNTERS, device, name, n)[:n]
     buf.zero_()
     return buf
+
+
+def arrivals(device: torch.device, name: str, n: int) -> torch.Tensor:
+    """At least ``n`` arrival counters of ``name`` for the current stream
+    of ``device``: zeroed when made, and reset to 0 by the kernel that
+    counts on them (its last arriving block), never by the host."""
+    return _buffer(_ARRIVALS, device, name, n)
 
 
 def next_epoch(device: torch.device) -> int:

@@ -25,9 +25,11 @@ At world > 1 the ranks are simulated on one card (``runtime/mesh.py``):
 ``ag_gemm_device`` takes every rank's A shard and B shard stacked, a
 (world, m, K) and b (world, K, n_local), and returns every rank's product
 (world, world * m, n_local) on ``csrc/ag_gemm.cu`` (``_ag_gemm_kernel``
-:304): the shards gathered into each rank's staging, flagged chunk by
-chunk, and each rank's tiles waiting on the rows they read, in the rank's
-segment order. The columns past ``overlap_cols`` run in
+:304): the shards bulk-copied into each rank's staging, flagged chunk by
+chunk, and each rank's ``wgmma`` tiles (TMA from the staging) waiting on
+the rows they read, in the rank's segment order; a bf16 call needs
+16-byte aligned operands and K and n in multiples of 8 (TMA), f32 takes
+any shape. The columns past ``overlap_cols`` run in
 ``matmul_tail_into`` over each rank's gathered A (:478-480). One card
 stands in for the group: the gather goes through device memory, not
 NVLink. The host wrapper ``ag_gemm`` (:979) takes JAX's global shapes.
@@ -202,6 +204,8 @@ def ag_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, cols: int,
           or staging.device != a.device or not staging.is_contiguous()):
         raise ValueError(f"staging must be a contiguous {shape} {a.dtype} "
                          f"tensor on {a.device}")
+    if a.dtype == torch.bfloat16:
+        _build.check_tma_rows("ag_gemm_cuda", (k, n), a, b, staging)
     chunk_rows = min(m, STAGE_CHUNK_ROWS)
     flags = _signal.flags(a.device, "ag_gemm",
                           world * world * -(-m // chunk_rows))

@@ -51,20 +51,34 @@ GROUP_GEMM_RS = _build.register(
     "group_gemm_rs", "triton_distributed_tpu_torch/csrc/group_gemm_rs.cu",
     "triton_distributed_tpu/kernels/moe_overlap.py:268")
 
-# Bytes of grid one producer item of the AG-GroupGEMM copies, in whole
-# experts (at least one): at Qwen3-30B-A3B's decode (cap 8, d 2,048, bf16)
-# two experts, at its prefill (cap 128) one expert of 512 KB.
+# Bytes of grid one producer item of the AG-GroupGEMM copies
+# (``producer_chunk``): whole experts while they fit, else rows of one
+# expert. At Qwen3-30B-A3B's decode (cap 8, d 2,048, bf16) two experts, at
+# its prefill (cap 128) 16 rows of one expert, so a tile's rows arrive
+# from several items running at once (measured no slower than whole
+# experts of 128 rows: scripts/torch_ag_group_gemm_breakdown.py).
 CHUNK_BYTES = 65536
+
+
+def producer_chunk(cap: int, d: int, itemsize: int) -> tuple[int, int]:
+    """``(experts, rows)`` of one AG-GroupGEMM producer item: whole experts
+    (at least one) when one expert's (cap, d) grid fits ``CHUNK_BYTES``,
+    else ``CHUNK_BYTES`` of rows of one expert."""
+    grid = cap * d * itemsize
+    if grid <= CHUNK_BYTES:
+        return CHUNK_BYTES // grid, cap
+    return 1, max(1, CHUNK_BYTES // (d * itemsize))
 
 
 @dataclasses.dataclass(frozen=True)
 class MoEOverlapConfig:
     """Tile configuration of the JAX kernels (:61): ``block_f`` tiles
     f_local in the up GEMM, ``block_d`` d in the down GEMM, ``block_k`` the
-    contraction. The CUDA tiles are fixed (128 x 128 bf16, 64 x 64 f32) and
-    mask ragged edges, so the config only validates, as ``GEMMRSConfig``
-    does: a dim that its block does not divide raises JAX's
-    ``ValueError``."""
+    contraction. The CUDA tiles are fixed (AG-GroupGEMM: a 256 x 96, 128 x
+    96 or 128 x 128 ``wgmma`` tile in bf16, 64 x 64 in f32; GroupGEMM-RS:
+    128 x 128 bf16) and mask ragged edges, so the config only validates, as
+    ``GEMMRSConfig`` does: a dim that its block does not divide raises
+    JAX's ``ValueError``."""
 
     block_f: int = 256
     block_d: int = 256
@@ -143,16 +157,19 @@ def ag_group_gemm_cuda(grids: torch.Tensor, w_up: torch.Tensor, *,
                          f"x {tuple(w_up.shape)}")
     staging = _staging("ag_group_gemm_cuda", staging,
                        (world, E, world, cap, d), grids)
-    ec = max(1, CHUNK_BYTES // (cap * d * grids.element_size()))
+    if grids.dtype == torch.bfloat16:
+        _build.check_tma_rows("ag_group_gemm_cuda", (d, f), grids, w_up,
+                              staging)
+    ec, rows = producer_chunk(cap, d, grids.element_size())
     flags = _signal.flags(grids.device, "ag_group_gemm",
-                          world * world * -(-E // ec))
+                          world * world * -(-E // ec) * -(-cap // rows))
     ticket = torch.empty(1, dtype=torch.int32, device=grids.device)
     up = torch.empty((world, E, world * cap, f), dtype=grids.dtype,
                      device=grids.device)
     err = _build.lib().tdt_ag_group_gemm(
         grids.data_ptr(), staging.data_ptr(), w_up.data_ptr(), up.data_ptr(),
         flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(grids.device),
-        world, E, cap, d, f, ec, code, producer_delay_ns,
+        world, E, cap, d, f, ec, rows, code, producer_delay_ns,
         _build.stream_ptr(grids))
     _build.check(err, "tdt_ag_group_gemm")
     AG_GROUP_GEMM.launches += 1

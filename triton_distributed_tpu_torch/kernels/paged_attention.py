@@ -26,6 +26,8 @@ import torch
 from triton_distributed_tpu_torch.kernels import _build
 from triton_distributed_tpu_torch.kernels.sp_attention import (
     _GQA_GROUPS,
+    decode_scratch,
+    decode_splits,
     flash_prefill_ref,
     paged_gather_kv,
 )
@@ -128,6 +130,14 @@ def _ref(q, k_pool, v_pool, slots: PagedSlots, scale, k_scale, v_scale):
                              seq_lens=slots.q_lens, scale=scale)
 
 
+def paged_decode_splits(block_tables: torch.Tensor, block_size: int) -> int:
+    """Splits of the decode (L == 1) kernel over these tables:
+    ``decode_splits`` of the static max_blocks x block_size positions,
+    never of the device-held kv_lens, so a serving step reads nothing back
+    and stays capturable."""
+    return decode_splits(block_tables.shape[1] * block_size)
+
+
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, kv_lens, *,
                          q_lens=None, slot_mask=None,
                          scale: float | None = None, k_scale=None,
@@ -179,12 +189,17 @@ def _launch(q, k_pool, v_pool, slots: PagedSlots, scale, k_scale, v_scale):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    splits = paged_decode_splits(tables, bs) if L == 1 else 1
+    part, arrivals = decode_scratch("paged_attention_arrivals", splits, B,
+                                    Hq, Hkv, dh, q.device)
     err = _build.lib().tdt_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         tables.data_ptr(), rows.data_ptr(), out.data_ptr(), B, L, Hq, Hkv,
         n_blocks, bs, tables.shape[1], dh, float(scale), q_code, kv_code,
+        None if part is None else part.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(), splits,
         _build.stream_ptr(q))
     _build.check(err, "tdt_paged_attention")
     PAGED_ATTENTION.launches += 1

@@ -64,6 +64,39 @@ _NEG_INF = -1e30
 # of flash_prefill.cu's 64-row tile, and flash_decode.cu's dispatch).
 _GQA_GROUPS = (1, 2, 4, 8, 16)
 
+# Keys of one split of the split-KV decode, in the contiguous and the
+# paged instantiation alike (the build compiles it into the kernel).
+DECODE_SPLIT = _build.DECODE_SPLIT
+
+
+def decode_splits(S: int) -> int:
+    """Splits of the decode kernel over a cache of S positions (the
+    contiguous cache's length, or max_blocks x block_size of a paged
+    table): ceil(S / DECODE_SPLIT), at least 1. A static shape only, never
+    the valid lengths, which live on the device."""
+    return max(1, -(-S // DECODE_SPLIT))
+
+
+def flash_decode_splits(k_cache: torch.Tensor,
+                        kv_layout: str = "bhsd") -> int:
+    """Splits of ``flash_decode_cuda`` over this cache: ``decode_splits``
+    of its length."""
+    return decode_splits(_to_bshd(k_cache, kv_layout).shape[1])
+
+
+def decode_scratch(name: str, splits: int, B: int, Hq: int, Hkv: int,
+                   dh: int, device) -> tuple[torch.Tensor | None,
+                                             torch.Tensor | None]:
+    """``(partials, arrivals)`` of a decode launch over ``splits`` splits:
+    f32 partials (B, Hq, splits, dh + 2) from ``torch.empty`` and the (B,
+    Hkv) arrival counters of ``name`` (``_signal.arrivals``: the last block
+    of each (row, kv head) resets its counter); both None at one split."""
+    if splits == 1:
+        return None, None
+    part = torch.empty((B, Hq, splits, dh + 2), dtype=torch.float32,
+                       device=device)
+    return part, _signal.arrivals(device, name, B * Hkv)
+
 
 def _to_bshd(cache: torch.Tensor, kv_layout: str) -> torch.Tensor:
     if kv_layout == "bshd":
@@ -229,10 +262,57 @@ def flash_decode_ref(q, k_cache, v_cache, *, kv_len=None,
     return out.reshape(B, Hq, dh), lse.reshape(B, Hq)
 
 
+def flash_decode_split_ref(q, k_cache, v_cache, *, kv_len=None,
+                           scale: float | None = None,
+                           kv_layout: str = "bhsd",
+                           split: int = DECODE_SPLIT):
+    """The split-and-merge algebra of the decode kernel, in torch: each
+    split of ``split`` keys gives a partial (m, l, acc) over its keys below
+    kv_len (m = -inf, l = 0 when it holds none), and the partials are
+    folded in split order, a partial at -inf weighing 0; out = acc /
+    max(l, 1e-30), lse = m + log(max(l, 1e-30)). f32, the contract of
+    ``flash_decode_ref``: a model of the kernel, not its plain version."""
+    B, Hq, dh = q.shape
+    k_cache = _to_bshd(k_cache, kv_layout).float()
+    v_cache = _to_bshd(v_cache, kv_layout).float()
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    kvl = torch.as_tensor(_decode_kv_lens(kv_len, B, S, q.device),
+                          dtype=torch.int32,
+                          device=q.device).reshape(-1).expand(B)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, dh) * scale
+    neg = torch.tensor(float("-inf"), device=q.device)
+    m = torch.full((B, Hkv, Hq // Hkv), float("-inf"), device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, Hq // Hkv, dh), device=q.device)
+    for s0 in range(0, S, split):
+        pos = torch.arange(s0, min(s0 + split, S), device=q.device)
+        ok = pos[None] < kvl[:, None]                              # (B, n)
+        kf = torch.where(ok[..., None, None], k_cache[:, s0:s0 + split], 0.)
+        vf = torch.where(ok[..., None, None], v_cache[:, s0:s0 + split], 0.)
+        sc = torch.einsum("bhgd,bshd->bhgs", qf, kf)
+        sc = torch.where(ok[:, None, None, :], sc, neg)
+        ms = sc.amax(dim=-1)                  # -inf: no key of the split
+        p = torch.where(ms[..., None] == neg, 0.,
+                        torch.exp(sc - ms[..., None]))
+        ls = p.sum(dim=-1)
+        accs = torch.einsum("bhgs,bshd->bhgd", p, vf)
+        M = torch.maximum(m, ms)
+        wa = torch.where(m == neg, 0., torch.exp(m - M))
+        wb = torch.where(ms == neg, 0., torch.exp(ms - M))
+        l = l * wa + ls * wb
+        acc = acc * wa[..., None] + accs * wb[..., None]
+        m = M
+    den = l.clamp_min(1e-30)
+    out = acc / den[..., None]
+    return out.reshape(B, Hq, dh), (m + torch.log(den)).reshape(B, Hq)
+
+
 def flash_decode_cuda(q, k_cache, v_cache, *, kv_len=None,
                       scale: float | None = None, kv_layout: str = "bhsd"):
-    """Launch ``csrc/flash_decode.cu``: one block per (row, kv head); see
-    ``flash_decode_local`` for the contract."""
+    """Launch ``csrc/flash_decode.cu``: split-KV, ``decode_splits(S)``
+    blocks per (row, kv head); see ``flash_decode_local`` for the
+    contract."""
     B, Hq, dh = q.shape
     k_cache = _to_bshd(k_cache, kv_layout)
     v_cache = _to_bshd(v_cache, kv_layout)
@@ -251,10 +331,19 @@ def flash_decode_cuda(q, k_cache, v_cache, *, kv_len=None,
     if q.numel() == 0:
         return out, lse
     sb, ss, sh = k_cache.stride(0), k_cache.stride(1), k_cache.stride(2)
+    if any(st % 8 for st in (sb, ss, sh)):
+        raise ValueError(f"flash_decode: cache strides {(sb, ss, sh)} must "
+                         f"be multiples of 8 elements (16-byte rows)")
+    splits = decode_splits(S)
+    part, arrivals = decode_scratch("flash_decode_arrivals", splits, B, Hq,
+                                    Hkv, dh, q.device)
     err = _build.lib().tdt_flash_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lse.data_ptr(), lens_ptr, kv_scalar, B, Hq, Hkv, S, dh, sb, ss, sh,
-        float(scale), _build.dtype_code(q), _build.stream_ptr(q))
+        float(scale), _build.dtype_code(q),
+        None if part is None else part.data_ptr(),
+        None if arrivals is None else arrivals.data_ptr(), splits,
+        _build.stream_ptr(q))
     _build.check(err, "tdt_flash_decode")
     FLASH_DECODE.launches += 1
     return out, lse
