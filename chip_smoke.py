@@ -106,9 +106,14 @@ script exits non-zero without its result line:
    f32 (bf16 ``atol=rtol=2e-2``, f32 ``1e-4``; the all-reduces and the
    GEMM-RS fold on exact products bit for bit, every staging slot holding
    what was pushed, and again with 1 ms-delayed producers behind NaN
-   staging), AG-GEMM at the JAX 640-column split (``matmul_tail_into`` per
-   rank); their times (kernel, device alone, plain, library call, bound);
-   fp32 ``tiny`` at world 8 (dist and ar tokens == xla); then Qwen3-32B at
+   staging; GEMM-RS also on exact products at each item set of
+   ``gemm_rs.cuh``: the owner's product folded in place in groups and rank
+   by rank, tiles straddling segments, rows TMA cannot read), AG-GEMM at
+   the JAX 640-column split (``matmul_tail_into`` per rank) and at n 130,
+   rows TMA cannot read (the ``mma.sync`` tile, one launch a call); their
+   times (kernel, device alone, plain, library call, bound; GEMM-RS's
+   library call ``torch.addbmm``, the two-call figure beside it, and its
+   decode shape m = 1); fp32 ``tiny`` at world 8 (dist and ar tokens == xla); then Qwen3-32B at
    world 8, full width and depth, serving 8 prompts of 1,024 tokens and 32
    new ones through ``Engine.serve`` in dist mode (exact counts: AG-GEMM
    and GEMM-RS 2 x 64 per forward, flash prefill 64, flash decode 64 x 31)
@@ -136,8 +141,9 @@ script exits non-zero without its result line:
    buffer NaN-poisoned and held against the xla golden with phase 3c's
    bars, TTFT, decode tokens/s, the peak memory and a device profile;
 9. the MoE tensor-parallel pipeline and the reduce-scatter at world 8 on
-   one card (seeded; the ranks simulated): the one-shot and ring
-   reduce-scatters (``csrc/oneshot_rs.cu``, ``ring_rs.cu``) bit for bit
+   one card (seeded; the ranks simulated): AG-GroupGEMM at d 33, rows TMA
+   cannot read (the ``mma.sync`` tile, one launch a call); the one-shot
+   and ring reduce-scatters (``csrc/oneshot_rs.cu``, ``ring_rs.cu``) bit for bit
    their plain versions at a Qwen3-32B TP = 8 layer's partial output (8,
    8,192, 5,120) and (8, 128, 5,120) bf16 and in f32; AG-GroupGEMM and
    GroupGEMM-RS (``csrc/ag_group_gemm.cu``, ``group_gemm_rs.cu``) at
@@ -150,7 +156,8 @@ script exits non-zero without its result line:
    pipeline on the card and the dense f32 golden with phase 3's bars) and
    the host ``reduce_scatter`` at both Qwen3-32B shapes, AUTO and ring;
    the four kernels' times (kernel, device alone, plain, library call,
-   bound) and the peak memory;
+   bound; GroupGEMM-RS's library call one ``torch.einsum``, the two-call
+   figure beside it, at the prefill and the decode) and the peak memory;
 10. sequence parallelism at world 8 at Qwen3-32B's attention width
    (64 query heads, 8 kv heads, dh 128), bf16: the ring and direct-push
    allgathers (``csrc/ring_ag.cu``, ``a2a_ag.cu``) bit for bit their plain
@@ -2481,6 +2488,17 @@ def phase_tp_kernels(gen, kernels, card):
     tp_check_ag(tg, "f32", randn(gen, w, 16, 1024, dtype=f32),
                 randn(gen, w, 1024, 1024, dtype=f32, scale=1024 ** -0.5),
                 err, delayed=True)
+    # bf16 rows that TMA cannot read (n 130): the mma.sync tile, one launch
+    # a call, where the port used to raise.
+    kernels.reset_counts()
+    tp_check_ag(tg, "rows TMA cannot read (mma.sync tile)",
+                randn(gen, 3, 40, 72), randn(gen, 3, 72, 130,
+                                             scale=72 ** -0.5),
+                err, delayed=True)
+    if kernels.KERNELS["ag_gemm"].launches != 2:
+        raise AssertionError("phase 7: ag_gemm at n 130 took "
+                             f"{kernels.KERNELS['ag_gemm'].launches} "
+                             f"launches for two calls")
     split = tg.AGGEMMConfig(overlap_cols=JAX_SPLIT_COLS)
     kernels.reset_counts()
     got = tg.ag_gemm_device(a, b, world=w, config=split)
@@ -2505,6 +2523,14 @@ def phase_tp_kernels(gen, kernels, card):
                 exact=True)
     tp_check_rs(trs, "exact f32", *tp_exact(gen, w, 64, 96, 200, f32), err,
                 exact=True)
+    # Each item set of gemm_rs.cuh on exact products: the own product folded
+    # with the tickets rank by rank (one expert's operands past
+    # GROUPED_BYTES), fold tiles straddling segments (own rows through f32
+    # scratch), rows TMA cannot read (the mma.sync tile).
+    for label, shape in (("exact bf16, rank by rank", (1024, 1024, 1024)),
+                         ("exact bf16, straddling tiles", (1600, 64, 256)),
+                         ("exact bf16, rows TMA cannot read", (480, 33, 130))):
+        tp_check_rs(trs, label, *tp_exact(gen, w, *shape), err, exact=True)
 
     x = randn(gen, w, *TP_AR)
     tp_check_ar(tar, "bench", x, err)
@@ -2541,11 +2567,34 @@ def phase_tp_kernels(gen, kernels, card):
     t_d = kernel_device_ms(lambda: trs.gemm_rs_cuda(ar_, br_),
                            "gemm_rs_kernel", n=10)
     t_p = timer(lambda: trs.gemm_rs_ref(ar_, br_), reps=3)
-    t_l = timer(lambda: torch.matmul(ar_, br_).sum(0), reps=10)
+    # One library call: torch.addbmm sums a[r] @ b[r] over the ranks; owner
+    # d's rows are a view of it. Beside it the two-call matmul and sum.
+    z = torch.empty(M, N, dtype=ar_.dtype, device="cuda")
+    t_l = timer(lambda: torch.addbmm(z, ar_, br_, beta=0), reps=10)
+    t_l2 = timer(lambda: torch.matmul(ar_, br_).sum(0), reps=10)
     t_b, by = bound_ms(pm.gemm_rs_flops(w, M, k, N),
                        pm.gemm_rs_bytes(w, M, k, N, 2))
     rows["gemm_rs"] = dict(ms=t_k, device_ms=t_d, plain_ms=t_p,
                            library_ms=t_l, bound_ms=t_b, bound_by=by)
+    t_ld = call_device_ms(lambda: torch.addbmm(z, ar_, br_, beta=0), n=10)
+    say(f"phase 7: gemm_rs prefill ({w}, {M}, {k}) x ({w}, {k}, {N}): kernel "
+        f"{t_k:.4f} ms (device alone {t_d:.4f}), torch.addbmm {t_l:.4f} ms "
+        f"(device alone {t_ld:.4f}), torch.matmul(a, b).sum(0) {t_l2:.4f} "
+        f"ms (two calls), kernel / the faster library "
+        f"{t_k / min(t_l, t_l2):.3f} [{card}]")
+    ad, zd = ar_[:, :w].contiguous(), z[:w]
+    t_k = timer(lambda: trs.gemm_rs_cuda(ad, br_), reps=20)
+    t_d = kernel_device_ms(lambda: trs.gemm_rs_cuda(ad, br_),
+                           "gemm_rs_kernel")
+    t_l = timer(lambda: torch.addbmm(zd, ad, br_, beta=0), reps=20)
+    t_l2 = timer(lambda: torch.matmul(ad, br_).sum(0), reps=20)
+    t_bd, byd = bound_ms(pm.gemm_rs_flops(w, w, k, N),
+                         pm.gemm_rs_bytes(w, w, k, N, 2))
+    say(f"phase 7: gemm_rs decode ({w}, {w}, {k}) x ({w}, {k}, {N}) (m = "
+        f"1): kernel {t_k:.4f} ms (device alone {t_d:.4f}), torch.addbmm "
+        f"{t_l:.4f} ms, torch.matmul(a, b).sum(0) {t_l2:.4f} ms (two calls), "
+        f"bound {t_bd:.4f} ms ({byd}) [{card}]")
+    del z, ad, zd
     nb = x[0].numel() * x.element_size()
     t_l = timer(lambda: x.float().sum(0), reps=50)
     t_b, by = bound_ms(0, pm.all_reduce_bytes(w, nb))
@@ -2566,7 +2615,8 @@ def phase_tp_kernels(gen, kernels, card):
             f"({r['bound_by']}); one card stands in for {w}: the link is "
             f"bypassed [{card}]")
     say("phase 7: library calls: ag_gemm torch.matmul of the gathered A "
-        "against b; gemm_rs torch.matmul(a, b).sum(0) (two calls); the "
+        "against b; gemm_rs torch.addbmm over the rank stack (one call; "
+        "the two-call torch.matmul(a, b).sum(0) printed beside it); the "
         "all-reduces x.float().sum(0)")
     return err, rows
 
@@ -3076,6 +3126,14 @@ def mt_check_ag(tmo, label, grids, w, err, exact=False):
         f"bit-identical")
 
 
+def rs_einsum(act, w_down):
+    """GroupGEMM-RS in one library call: out[d][e] = sum over the ranks r
+    of act[r][e] rows of segment d @ w_down[r][e]."""
+    world, E, rows, f = act.shape
+    return torch.einsum("redcf,refn->decn",
+                        act.view(world, E, world, rows // world, f), w_down)
+
+
 def mt_check_grs(tmo, label, act, w, err, exact=False):
     """GroupGEMM-RS against the plain version: on exact products the fold
     bit for bit, every slot the pushed partial, and again with the product
@@ -3128,7 +3186,17 @@ def phase_moe_tp(gen, kernels, card):
     prefill = mt_inputs(gen, MT_PREFILL[0], wu, wd)
     decode = mt_inputs(gen, MT_DECODE[0], wu, wd)
 
-    # (a) Each kernel against its plain version at the path's shapes.
+    # (a) Each kernel against its plain version at the path's shapes; first
+    # bf16 rows that TMA cannot read (d 33): the mma.sync tile, one launch a
+    # call, where the port used to raise.
+    kernels.reset_counts()
+    mt_check_ag(tmo, "d 33 (rows TMA cannot read: the mma.sync tile)",
+                randn(gen, 4, 2, 8, 33), randn(gen, 4, 2, 33, 96,
+                                               scale=33 ** -0.5), err)
+    if kernels.KERNELS["ag_group_gemm"].launches != 2:
+        raise AssertionError("phase 9: ag_group_gemm at d 33 took "
+                             f"{kernels.KERNELS['ag_group_gemm'].launches} "
+                             f"launches for two calls")
     x_rs = {"prefill": randn(gen, w, *MT_RS_PREFILL),
             "decode": randn(gen, w, *MT_RS_DECODE)}
     for label, x in x_rs.items():
@@ -3247,7 +3315,7 @@ def phase_moe_tp(gen, kernels, card):
              pm.ag_group_gemm_bytes(w, MOE_E, cap, MOE_D, fl, 2, rows=live)),
             ("group_gemm_rs", lambda: tmo.group_gemm_rs_cuda(act, wd),
              lambda: tmo.group_gemm_rs_ref(act, wd),
-             lambda: torch.matmul(act, wd).sum(0),
+             lambda: rs_einsum(act, wd),
              pm.group_gemm_rs_bytes(w, MOE_E, cap, MOE_D, fl, 2,
                                     rows=live))):
         t_b, by = bound_ms(flops, nbytes)
@@ -3258,6 +3326,17 @@ def phase_moe_tp(gen, kernels, card):
                           library_ms=timer(lib, reps=10), bound_ms=t_b,
                           bound_by=by)
         free_card()
+    r = rows["group_gemm_rs"]
+    t_l2 = timer(lambda: torch.matmul(act, wd).sum(0), reps=10)
+    say(f"phase 9: group_gemm_rs prefill (the wgmma items, the owner's "
+        f"product folded in place): kernel {r['ms']:.4f} ms, device alone "
+        f"{r['device_ms']:.4f} ms; library one call (einsum) "
+        f"{r['library_ms']:.4f} ms (device alone "
+        f"{call_device_ms(lambda: rs_einsum(act, wd), n=10):.4f}), two calls "
+        f"(torch.matmul(act, w_down).sum(0)) {t_l2:.4f} ms; kernel / two "
+        f"calls {r['ms'] / t_l2:.3f}, kernel / one call "
+        f"{r['ms'] / r['library_ms']:.3f} [{card}]")
+    free_card()
     r = rows["ag_group_gemm"]
     # The floor with the simulated link's staging kept: the bound's bytes
     # plus every rank's staging written once (read back from L2).
@@ -3291,7 +3370,8 @@ def phase_moe_tp(gen, kernels, card):
              pm.ag_group_gemm_bytes(w, MOE_E, dcap, MOE_D, fl, 2),
              lambda: torch.matmul(dgathered, w_up)),
             ("group_gemm_rs", lambda: tmo.group_gemm_rs_cuda(dact, wd),
-             pm.group_gemm_rs_bytes(w, MOE_E, dcap, MOE_D, fl, 2), None)):
+             pm.group_gemm_rs_bytes(w, MOE_E, dcap, MOE_D, fl, 2),
+             lambda: rs_einsum(dact, wd))):
         t_b, by = bound_ms(pm.group_gemm_flops(w, w * MOE_E * dcap, MOE_D,
                                                fl), nbytes)
         t_k = timer(run, reps=20)
@@ -3299,11 +3379,11 @@ def phase_moe_tp(gen, kernels, card):
                 f"kernel {t_k:.4f} ms, device alone "
                 f"{kernel_device_ms(run, f'{name}_kernel'):.4f} ms, bound "
                 f"{t_b:.4f} ms ({by}: whole grids, every weight shard)")
-        if lib is not None:
-            t_l = timer(lib, reps=20)
-            line += (f", library {t_l:.4f} ms (torch.matmul of the gathered "
-                     f"decode grids with the unsharded w_up), kernel / "
-                     f"library {t_k / t_l:.3f}")
+        t_l = timer(lib, reps=20)
+        line += (f", library {t_l:.4f} ms ("
+                 + ("torch.matmul of the gathered decode grids with the "
+                    "unsharded w_up" if name == "ag_group_gemm" else
+                    "one einsum") + f"), kernel / library {t_k / t_l:.3f}")
         say(f"{line} [{card}]")
     del grids, gathered, act, dgrids, dact, dgathered
     free_card()
@@ -3337,9 +3417,10 @@ def phase_moe_tp(gen, kernels, card):
             f"for {w}: the link is bypassed [{card}]")
     say("phase 9: library calls: ag_group_gemm torch.matmul of the gathered "
         "grids (E, 8 cap, d) against the unsharded w_up (E, d, 768), every "
-        "rank's f shard side by side; group_gemm_rs torch.matmul(act, "
-        "w_down).sum(0) (two calls); the reduce-scatters "
-        "x.view(w, w, m, n).float().sum(0)")
+        "rank's f shard side by side; group_gemm_rs one torch.einsum("
+        "'redcf,refn->decn') over act viewed (w, E, w, cap, f) (the two-call "
+        "torch.matmul(act, w_down).sum(0) printed beside it); the "
+        "reduce-scatters x.view(w, w, m, n).float().sum(0)")
     say(f"phase 9: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB [{card}]")
     del x_rs, prefill, decode, wu, wd, w_up, w_down

@@ -151,7 +151,7 @@ def main() -> int:
                     _build.check(lib.tdt_ag_group_gemm(
                         grids.data_ptr(), staging.data_ptr(), w.data_ptr(),
                         out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
-                        epoch[0], WORLD, E, cap, D, F, ec, rows, 1, 0,
+                        epoch[0], WORLD, E, cap, D, F, ec, rows, 1, 1, 0,
                         stream), "tdt_ag_group_gemm")
 
                 run()

@@ -3,17 +3,18 @@
     python3 scripts/torch_gemm_rs_scaling.py     # on a machine with one H100
 
 ``csrc/group_gemm_rs.cu`` at Qwen3-30B-A3B's prefill (world 8, 128
-experts, capacity 128, f_local 96, d 2,048) writes 2.15e9 partials, one
-scalar store each in the product tiles' epilogue, and folds them back. This
-script times the kernel alone (``torch.profiler``, the L2 flushed before
-each call, bf16) at that shape and at shapes that change one factor:
+experts, capacity 128, f_local 96, d 2,048) pushes 1.88e9 of its 2.15e9
+partials into staging (16-byte vectors from each product tile) and folds
+them back with the owners' own. This script times the kernel alone
+(``torch.profiler``, the L2 flushed before each call, bf16) at that shape
+and at shapes that change one factor:
 
 - K (f_local) x4: the tiles' operations grow, their partials do not;
 - d / 4: the partials shrink with the operations;
 - E folded into the rows (one expert, ``gemm_rs.cu``'s geometry through the
   same items): the same partials and operations in fewer, taller products.
 
-A time that follows the partials and not K says the epilogue and the fold,
+A time that follows the partials and not K says the pushes and the fold,
 not the MMA, hold the kernel. Prints one line a shape, with the card's name
 and power limit. Needs a CUDA card.
 """

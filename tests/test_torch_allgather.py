@@ -253,8 +253,9 @@ def test_auto_rules_and_perf_model_match_jax():
 
 def test_world_one_and_refusals():
     """World 1 returns the input (JAX :163-164, ll :107-108); AUTO on a CPU
-    tensor runs the push; the 2-D exchanges raise NotImplementedError
-    naming ROADMAP.md; an unknown method JAX's ValueError."""
+    tensor runs the push; the 2-D exchange over a ``dcn_axis`` raises
+    NotImplementedError naming ROADMAP.md; ``ring_2d`` without one and an
+    unknown method raise JAX's ValueError (JAX :245-247, layer :134-137)."""
     x = torch.randn(1, 6, 4)
     staging = torch.zeros(1, 2, 1, 6, 4)
     assert tag.ring_all_gather(x, world=1) is x
@@ -265,14 +266,16 @@ def test_world_one_and_refusals():
     xs = torch.randn(W, 3, 4)
     _build.reset_counts()
     assert torch.equal(tag.all_gather(xs, world=W), xs.reshape(-1, 4))
-    for kw in ({"method": "ring_2d"}, {"dcn_axis": "dcn"}):
+    for kw in ({"dcn_axis": "dcn"}, {"method": "ring_2d", "dcn_axis": "dcn"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tag.all_gather(xs, world=W, **kw)
+    with pytest.raises(ValueError, match="ring_2d needs dcn_axis"):
+        tag.all_gather(xs, world=W, method="ring_2d")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tll.ll_all_gather_2d_device(xs, staging, 0)
     layer = tlayer.AllGatherLayer((3, 4), torch.float32, world=W,
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="spans one mesh axis"):
         layer(xs, method="ring_2d")
     with pytest.raises(ValueError) as want:
         jag.AllGatherMethod("tree")

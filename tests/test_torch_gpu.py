@@ -754,17 +754,38 @@ def test_ag_gemm_kernel_matches_plain(cuda, world, m, K, n, dtype):
 
 
 def test_wgmma_tiles_refuse_rows_tma_cannot_read(cuda):
-    """bf16 runs on TMA and wgmma: rows that are no whole number of
-    16-byte units raise before any launch (f32 takes them)."""
+    """Rows that TMA cannot read (n 130, d 33: no whole number of 16-byte
+    units) no longer raise: the bf16 AG-GEMM and AG-GroupGEMM run the same
+    items on the mma.sync tile, one launch each, within bf16 tolerance of
+    their plain versions, every staging slot the gathered rows, also with 1
+    ms-delayed producers behind NaN staging (bit-identical); f32 takes them
+    too."""
     gen = torch.Generator(device=cuda).manual_seed(8)
-    a = _randn(gen, 3, 40, 72, dtype=torch.bfloat16)
-    b = _randn(gen, 3, 72, 130, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="TMA"):
-        tg.ag_gemm_cuda(a, b, cols=130)
-    grids = _randn(gen, 4, 2, 8, 33, dtype=torch.bfloat16)
-    w = _randn(gen, 4, 2, 33, 96, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="TMA"):
-        tmo.ag_group_gemm_cuda(grids, w)
+    bf16 = torch.bfloat16
+    a = _randn(gen, 3, 40, 72, dtype=bf16)
+    b = _randn(gen, 3, 72, 130, dtype=bf16) * 72 ** -0.5
+    grids = _randn(gen, 4, 2, 8, 33, dtype=bf16)
+    w = _randn(gen, 4, 2, 33, 96, dtype=bf16) * 33 ** -0.5
+    _build.reset_counts()
+    out, staged = tg.ag_gemm_cuda(a, b, cols=130)
+    up, st = tmo.ag_group_gemm_cuda(grids, w)
+    torch.cuda.synchronize()
+    assert tg.AG_GEMM.launches == 1 and tmo.AG_GROUP_GEMM.launches == 1
+    want, want_staged = tg.ag_gemm_ref(a, b, cols=130)
+    torch.testing.assert_close(out, want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(staged, want_staged)
+    want, want_st = tmo.ag_group_gemm_ref(grids, w, return_staging=True)
+    torch.testing.assert_close(up, want, atol=2e-2, rtol=2e-2)
+    assert torch.equal(st, want_st)
+    poison = torch.full_like(staged, float("nan"))
+    slow, _ = tg.ag_gemm_cuda(a, b, cols=130, staging=poison,
+                              producer_delay_ns=1_000_000)
+    poison_g = torch.full_like(st, float("nan"))
+    slow_g, _ = tmo.ag_group_gemm_cuda(grids, w, staging=poison_g,
+                                       producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(slow, out) and torch.equal(poison, staged)
+    assert torch.equal(slow_g, up) and torch.equal(poison_g, st)
     out, _ = tg.ag_gemm_cuda(a.float(), b.float(), cols=130)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, tg.ag_gemm_ref(a.float(), b.float(),
@@ -810,7 +831,12 @@ def test_ag_gemm_waits_for_delayed_producers(cuda, dtype):
     (8, 256, 128, 320, torch.bfloat16),
     (8, 64, 96, 200, torch.float32),
     (3, 60, 72, 130, torch.bfloat16),      # a world that is not 2^k
-    (3, 21, 33, 77, torch.float32)])       # ragged, unvectorised
+    (3, 21, 33, 77, torch.float32),        # ragged, unvectorised
+    (8, 1024, 64, 256, torch.bfloat16),    # own product folded, grouped
+    (2, 512, 128, 256, torch.bfloat16),    # world 2, grouped
+    (2, 256, 2048, 2048, torch.bfloat16),  # world 2, rank by rank
+    (3, 600, 64, 256, torch.bfloat16),     # fold tiles straddle segments
+    (2, 256, 33, 130, torch.bfloat16)])    # rows TMA cannot read: mma.sync
 def test_gemm_rs_kernel_matches_plain(cuda, world, M, k, N, dtype):
     gen = torch.Generator(device=cuda).manual_seed(M * k)
     a = _randn(gen, world, M, k, dtype=dtype)
@@ -823,15 +849,20 @@ def test_gemm_rs_kernel_matches_plain(cuda, world, M, k, N, dtype):
     torch.testing.assert_close(got, trs.gemm_rs_ref(a, b), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("world,M,k,N", [
+    (8, 16 * 8, 64, 192),       # bf16: own rows through f32 scratch
+    (8, 1024, 64, 192),         # bf16: own product folded, grouped
+    (2, 256, 2048, 2048),       # bf16: own product folded, rank by rank
+    (3, 600, 33, 130)])         # bf16: mma.sync, tiles straddle segments
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("delay_ns", [0, 1_000_000])
-def test_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns):
+def test_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns, world, M, k,
+                                       N):
     """Exact partials: the fold (remote partials rounded to the output
     dtype, own f32, src = 0 .. world - 1) is the plain fold's bits, with the
     product tiles held back 1 ms behind NaN staging or not, and every slot
-    holds the pushed partial."""
+    holds the pushed partial; for each item set of the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(11)
-    world, M, k, N = 8, 16 * 8, 64, 192
     a, b = _exact_operands(gen, world, M, k, N, dtype, cuda)
     staging = torch.full((world, world - 1, M // world, N), float("nan"),
                          dtype=dtype, device=cuda)
@@ -1111,7 +1142,10 @@ def test_ag_group_gemm_is_bit_identical_on_exact_products(cuda, dtype,
     (8, 16, 8, 96, 512, torch.bfloat16),
     (8, 3, 128, 96, 768, torch.bfloat16),
     (4, 5, 40, 72, 136, torch.bfloat16),
-    (3, 4, 21, 33, 77, torch.float32)])
+    (3, 4, 21, 33, 77, torch.float32),
+    (2, 4, 128, 96, 256, torch.bfloat16),   # world 2, own product folded
+    (3, 2, 200, 64, 256, torch.bfloat16),   # fold tiles straddle segments
+    (2, 3, 40, 33, 130, torch.bfloat16)])   # rows TMA cannot read
 def test_group_gemm_rs_kernel_matches_plain(cuda, world, E, cap, f, d,
                                             dtype):
     gen = torch.Generator(device=cuda).manual_seed(cap * f)
@@ -1126,15 +1160,20 @@ def test_group_gemm_rs_kernel_matches_plain(cuda, world, E, cap, f, d,
                                rtol=tol)
 
 
+@pytest.mark.parametrize("world,E,cap,f,d", [
+    (8, 6, 16, 96, 320),        # bf16: own rows through f32 scratch
+    (8, 2, 128, 96, 256),       # bf16: own product folded, grouped
+    (3, 2, 200, 64, 256),       # bf16: fold tiles straddle segments
+    (2, 3, 40, 33, 130)])       # bf16: rows TMA cannot read (mma.sync)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("delay_ns", [0, 1_000_000])
-def test_group_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns):
+def test_group_gemm_rs_fold_is_bit_identical(cuda, dtype, delay_ns, world,
+                                             E, cap, f, d):
     """Exact partials: the fold (remote partials rounded to the output
     dtype, own f32, src = 0 .. world - 1) is the plain fold's bits, with the
     product tiles held back 1 ms behind NaN staging or not, and every slot
-    holds the pushed partial."""
+    holds the pushed partial; for each item set of the kernel."""
     gen = torch.Generator(device=cuda).manual_seed(19)
-    world, E, cap, f, d = 8, 6, 16, 96, 320
     act = _exact_operands(gen, world, E * world * cap, f, d, dtype,
                           cuda)[0].reshape(world, E, world * cap, f)
     w = _randn(gen, world, E, f, d, dtype=torch.bfloat16).to(dtype)

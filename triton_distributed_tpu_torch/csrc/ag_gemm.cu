@@ -38,7 +38,10 @@
 //   staged rows. Every flag waited on belongs to an earlier ticket: no
 //   deadlock, whatever the dispatch order. delay_ns holds every producer
 //   item back before its copy (a test of the waits: the result must not
-//   change). f32 keeps the SIMT tile, full f32.
+//   change). bf16 rows that TMA cannot read (K or n no multiple of 8, a
+//   base not 16-byte aligned: the wrapper's tma) run the same items on
+//   gemm_tile.cuh's mma.sync tile in the same one launch, as the JAX kernel
+//   takes such shapes; f32 keeps the SIMT tile, full f32.
 #include "ag_gemm.cuh"
 
 namespace {
@@ -50,18 +53,20 @@ TDT_AG_KERNELS(ag_gemm)
 // a (world, m, K), b (world, K, n), out (world, world m, cols), staging
 // (world, world, m, K); flags (world x world x ceil(m / chunk_rows), uint32,
 // raised to epoch); ticket (one int32 of scratch, zeroed here on the
-// stream); dtype 0 f32, 1 bf16 (K and n multiples of 8, 16-byte aligned
-// pointers); delay_ns holds every producer back (0 in use).
+// stream); dtype 0 f32, 1 bf16; tma 1 when TMA can read every bf16 operand
+// (K and n multiples of 8, 16-byte aligned pointers: the wgmma tile), 0
+// for the mma.sync tile; delay_ns holds every producer back (0 in use).
 extern "C" int tdt_ag_gemm(const void* a, void* staging, const void* b,
                            void* out, void* flags, void* ticket,
                            unsigned epoch, long long world, long long m,
                            long long K, long long n, long long cols,
-                           long long chunk_rows, int dtype,
+                           long long chunk_rows, int dtype, int tma,
                            unsigned long long delay_ns, void* stream) {
   return tdt::ag::launch(ag_gemm_kernel_wgmma<256, 96>,
                          ag_gemm_kernel_wgmma<128, 96>,
-                         ag_gemm_kernel_wgmma<128, 128>, ag_gemm_kernel_f32,
-                         a, staging, b, out, flags, ticket, epoch, world, 1,
-                         m, K, n, cols, 1, chunk_rows, dtype, delay_ns,
+                         ag_gemm_kernel_wgmma<128, 128>, ag_gemm_kernel_mma,
+                         ag_gemm_kernel_f32, a, staging, b, out, flags,
+                         ticket, epoch, world, 1, m, K, n, cols, 1,
+                         chunk_rows, dtype, tma, delay_ns,
                          static_cast<cudaStream_t>(stream));
 }

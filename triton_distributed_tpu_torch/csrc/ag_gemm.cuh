@@ -32,13 +32,16 @@
 // Reading each source chunk once for all world ranks keeps the producers'
 // reads at 1 x the grids.
 //
-// bf16 (WgPath): a producer item is thread 0 moving the rows with bulk
-// copies through the block's shared memory (wgmma_tile.cuh bulk_copy, 96 KB
-// in flight), and a consumer item is wgmma_tile.cuh's 256 x 96 or 128 x 128
-// tile (128 x 96 for a plane of at most 128 rows), fed by TMA from S and
-// B. Needs K and n in whole 16-byte rows and 16-byte aligned bases (the
-// wrappers check). f32 (F32Path): every thread copies (lang::copy_block)
-// and the tile is gemm_tile.cuh's SIMT tile, full f32.
+// bf16 that TMA can read (WgPath): a producer item is thread 0 moving the
+// rows with bulk copies through the block's shared memory (wgmma_tile.cuh
+// bulk_copy, 96 KB in flight), and a consumer item is wgmma_tile.cuh's 256
+// x 96 or 128 x 128 tile (128 x 96 for a plane of at most 128 rows), fed by
+// TMA from S and B. TMA needs K and n in whole 16-byte rows and 16-byte
+// aligned bases: the wrapper decides from the shapes and pointers and
+// passes the answer (tma). Every other call runs TilePath: every thread
+// copies (lang::copy_block) and the tile is gemm_tile.cuh's, the mma.sync
+// tile for bf16 (element loads, any row length) and the SIMT tile for f32,
+// full f32. Either way one launch of one kernel, chosen before it.
 #pragma once
 
 #include <algorithm>
@@ -111,7 +114,7 @@ __device__ __forceinline__ Item item_of(int t, const Geometry& g) {
 }
 
 // The items of one call, over a Path that moves the rows and runs the
-// tiles (WgPath, F32Path). Every thread of the block calls it.
+// tiles (WgPath, TilePath). Every thread of the block calls it.
 template <class Path>
 __device__ __forceinline__ void run_items(Path& path, uint32_t* flags,
                                           int* ticket, uint32_t epoch,
@@ -213,15 +216,17 @@ struct WgPath {
   }
 };
 
-// f32: every thread copies (16-byte moves where the shapes allow),
-// gemm_tile.cuh's SIMT tile.
-struct F32Path {
-  using T = float;
+// Every thread copies (16-byte moves where the shapes allow), and the tile
+// is gemm_tile.cuh's product_tile: mma.sync for bf16 (its element loads take
+// any row length and alignment; smem holds gemm::SMEM_BYTES), SIMT for f32.
+template <typename T>
+struct TilePath {
   const T* A;
   T* S;
   T* C;
   const T* B;
   const Geometry& g;
+  unsigned char* smem;
 
   __device__ __forceinline__ void push(T* dst, size_t dst_stride, int n_dst,
                                        const T* src, size_t n) {
@@ -241,9 +246,10 @@ struct F32Path {
     T* Cp = C + (size_t)plane * rows * g.cols;
     gemm::product_tile<T, false>(
         S + (size_t)plane * rows * g.K, g.K, B + (size_t)plane * g.K * g.n,
-        g.n, rows, g.cols, g.K, m0, n0, nullptr,
+        g.n, rows, g.cols, g.K, m0, n0, smem,
         [&](int gr, int gc, float v) {
-          if (gr < rows && gc < g.cols) Cp[(size_t)gr * g.cols + gc] = v;
+          if (gr < rows && gc < g.cols)
+            Cp[(size_t)gr * g.cols + gc] = from_f32<T>(v);
         });
     // product_tile ends at a barrier: its shared memory is free again.
   }
@@ -261,7 +267,8 @@ inline int tile_m(int bn, long long rows) {
 }
 
 // Whether a bf16 call meets TMA's rules: 16-byte aligned bases and rows in
-// whole 16-byte units.
+// whole 16-byte units (the wrapper's tma, checked again before a launch
+// that relies on it).
 inline bool tma_ready(const void* a, const void* staging, const void* b,
                       long long K, long long n) {
   return K % 8 == 0 && n % 8 == 0 && gemm::aligned16(a) &&
@@ -287,22 +294,24 @@ cudaError_t launch_grid(Kernel kernel, int threads, int smem,
   return cudaGetLastError();
 }
 
-// Launch a call: bf16 on the wgmma kernel of the tile_m x tile_n shape,
-// f32 on the SIMT kernel. a (world, E, m, K), staging (world, E, world, m,
-// K), b (world, E, K, n), out (world, E, world m, cols).
-template <class Wg256x96, class Wg128x96, class Wg128x128, class F32>
+// Launch a call: bf16 that TMA can read (tma) on the wgmma kernel of the
+// tile_m x tile_n shape, other bf16 on the mma.sync kernel, f32 on the
+// SIMT kernel. a (world, E, m, K), staging (world, E, world, m, K), b
+// (world, E, K, n), out (world, E, world m, cols).
+template <class Wg256x96, class Wg128x96, class Wg128x128, class Mma,
+          class F32>
 cudaError_t launch(Wg256x96 wg256x96, Wg128x96 wg128x96,
-                   Wg128x128 wg128x128, F32 f32, const void* a,
+                   Wg128x128 wg128x128, Mma mma, F32 f32, const void* a,
                    void* staging, const void* b, void* out, void* flags,
                    void* ticket, unsigned epoch, long long world, long long E,
                    long long m, long long K, long long n, long long cols,
-                   long long ec, long long chunk_rows, int dtype,
+                   long long ec, long long chunk_rows, int dtype, int tma,
                    unsigned long long delay_ns, cudaStream_t s) {
   Geometry g;
   uint32_t* fl = static_cast<uint32_t*>(flags);
   int* tk = static_cast<int*>(ticket);
   if (!staging) return cudaErrorInvalidValue;
-  if (dtype == kBF16) {
+  if (dtype == kBF16 && tma) {
     using gemm::bf16;
     const int bn = tile_n(cols), bm = tile_m(bn, world * m);
     if (!tma_ready(a, staging, b, K, n) ||
@@ -324,6 +333,17 @@ cudaError_t launch(Wg256x96 wg256x96, Wg128x96 wg128x96,
     return launch_grid(wg128x128, wg::THREADS, wg::SMEM_BYTES, g, ticket, s,
                        ta, tb, A, S, C, fl, tk, epoch, g, delay_ns);
   }
+  if (dtype == kBF16) {
+    using gemm::bf16;
+    if (!make_geometry(world, E, m, K, n, cols, ec, chunk_rows, gemm::BM,
+                       gemm::BN, &g))
+      return cudaErrorInvalidValue;
+    return launch_grid(mma, gemm::THREADS, gemm::SMEM_BYTES, g, ticket, s,
+                       static_cast<const bf16*>(a),
+                       static_cast<bf16*>(staging),
+                       static_cast<const bf16*>(b), static_cast<bf16*>(out),
+                       fl, tk, epoch, g, delay_ns);
+  }
   if (dtype != kF32) return cudaErrorInvalidValue;
   using Tile = gemm::TileOf<float>;
   if (!make_geometry(world, E, m, K, n, cols, ec, chunk_rows, Tile::M, Tile::N,
@@ -340,8 +360,8 @@ cudaError_t launch(Wg256x96 wg256x96, Wg128x96 wg128x96,
 }  // namespace tdt
 
 // The kernels of a .cu file that runs these items, named after it (the
-// profiler finds a kernel by its name): NAME_kernel_wgmma<BM, BN> and
-// NAME_kernel_f32.
+// profiler finds a kernel by its name): NAME_kernel_wgmma<BM, BN>,
+// NAME_kernel_mma (bf16 rows TMA cannot read) and NAME_kernel_f32.
 #define TDT_AG_KERNELS(NAME)                                                 \
   template <int BM, int BN>                                                  \
   __global__ void __launch_bounds__(tdt::wg::THREADS, 2)                     \
@@ -351,15 +371,24 @@ cudaError_t launch(Wg256x96 wg256x96, Wg128x96 wg128x96,
                           tdt::gemm::bf16* C, uint32_t* flags, int* ticket,  \
                           uint32_t epoch, tdt::ag::Geometry g,               \
                           unsigned long long delay_ns) {                     \
-    extern __shared__ unsigned char smem[];                                  \
+    extern __shared__ __align__(16) unsigned char smem[];                    \
     tdt::ag::WgPath<BM, BN> path{A, S, C, &ta, &tb, g, tdt::wg::Smem(smem)}; \
     path.sm.init();                                                          \
+    tdt::ag::run_items(path, flags, ticket, epoch, g, delay_ns);             \
+  }                                                                          \
+  __global__ void __launch_bounds__(tdt::gemm::THREADS)                      \
+      NAME##_kernel_mma(const tdt::gemm::bf16* A, tdt::gemm::bf16* S,        \
+                        const tdt::gemm::bf16* B, tdt::gemm::bf16* C,        \
+                        uint32_t* flags, int* ticket, uint32_t epoch,        \
+                        tdt::ag::Geometry g, unsigned long long delay_ns) {  \
+    extern __shared__ __align__(16) unsigned char smem[];                    \
+    tdt::ag::TilePath<tdt::gemm::bf16> path{A, S, C, B, g, smem};            \
     tdt::ag::run_items(path, flags, ticket, epoch, g, delay_ns);             \
   }                                                                          \
   __global__ void __launch_bounds__(tdt::gemm::F_THREADS)                    \
       NAME##_kernel_f32(const float* A, float* S, const float* B, float* C,  \
                         uint32_t* flags, int* ticket, uint32_t epoch,        \
                         tdt::ag::Geometry g, unsigned long long delay_ns) {  \
-    tdt::ag::F32Path path{A, S, C, B, g};                                    \
+    tdt::ag::TilePath<float> path{A, S, C, B, g, nullptr};                   \
     tdt::ag::run_items(path, flags, ticket, epoch, g, delay_ns);             \
   }

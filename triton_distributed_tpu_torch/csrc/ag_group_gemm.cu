@@ -51,7 +51,10 @@
 //   touch; at cap 8 one row tile covers every source, so each
 //   weight shard is read once. Rows past a (source, expert) count are zero
 //   in the grid and are multiplied like any other (the plain version does
-//   the same). f32 keeps the SIMT tile, full f32.
+//   the same). bf16 rows that TMA cannot read (d or f no multiple of 8, a
+//   base not 16-byte aligned: the wrapper's tma) run the same items on
+//   gemm_tile.cuh's mma.sync tile in the same one launch, as the JAX kernel
+//   takes such shapes; f32 keeps the SIMT tile, full f32.
 #include "ag_gemm.cuh"
 
 namespace {
@@ -64,22 +67,23 @@ TDT_AG_KERNELS(ag_group_gemm)
 // f), staging (world, E, world, cap, d); flags (world x world x ceil(E /
 // ec) x ceil(cap / chunk_rows), uint32, raised to epoch); ticket (one int32
 // of scratch, zeroed here on the stream); a producer chunk is ec experts x
-// chunk_rows rows (ec > 1 only with chunk_rows = cap); dtype 0 f32, 1 bf16
-// (d and f multiples of 8, 16-byte aligned pointers); delay_ns holds every
-// producer back (0 in use).
+// chunk_rows rows (ec > 1 only with chunk_rows = cap); dtype 0 f32, 1 bf16;
+// tma 1 when TMA can read every bf16 operand (d and f multiples of 8,
+// 16-byte aligned pointers: the wgmma tile), 0 for the mma.sync tile;
+// delay_ns holds every producer back (0 in use).
 extern "C" int tdt_ag_group_gemm(const void* grids, void* staging,
                                  const void* w, void* out, void* flags,
                                  void* ticket, unsigned epoch,
                                  long long world, long long E, long long cap,
                                  long long d, long long f, long long ec,
-                                 long long chunk_rows, int dtype,
+                                 long long chunk_rows, int dtype, int tma,
                                  unsigned long long delay_ns, void* stream) {
   if (ec > 1 && chunk_rows < cap) return cudaErrorInvalidValue;
   return tdt::ag::launch(ag_group_gemm_kernel_wgmma<256, 96>,
                          ag_group_gemm_kernel_wgmma<128, 96>,
                          ag_group_gemm_kernel_wgmma<128, 128>,
-                         ag_group_gemm_kernel_f32, grids, staging, w, out,
-                         flags, ticket, epoch, world, E, cap, d, f, f, ec,
-                         chunk_rows, dtype, delay_ns,
-                         static_cast<cudaStream_t>(stream));
+                         ag_group_gemm_kernel_mma, ag_group_gemm_kernel_f32,
+                         grids, staging, w, out, flags, ticket, epoch, world,
+                         E, cap, d, f, f, ec, chunk_rows, dtype, tma,
+                         delay_ns, static_cast<cudaStream_t>(stream));
 }

@@ -44,23 +44,25 @@ constexpr int BK = 64, THREADS = 128;
 constexpr int B_BLOCK = BK * 32 * 2;  // 4 KB: 64 k rows x 32 columns
 constexpr int RING_BYTES = 96 * 1024;
 
+constexpr int MAX_STAGES = 3;
 // A tile shape: BM rows (BM / 64 m64 halves) x BN columns, its stage (an A
 // box of BM rows of 128 bytes, then room for BN = 128 of B) and the stages
-// of the 96 KB ring. The 256 x 96 tile (Qwen3-30B-A3B's f_local) reads each
-// weight shard half as often as a 128-row one, in two stages; the 128 x 128
-// tile keeps three.
-template <int BM, int BN>
+// of a RING-byte ring (96 KB unless a kernel asks for less). The 256 x 96
+// tile (Qwen3-30B-A3B's f_local) reads each weight shard half as often as
+// a 128-row one, in two stages; the 128 x 128 tile keeps three (two in a
+// 64 KB ring).
+template <int BM, int BN, int RING = RING_BYTES>
 struct Shape {
   static_assert((BM == 128 || BM == 256) && (BN == 96 || BN == 128),
                 "tile shapes: 128 or 256 rows, 96 or 128 columns");
   static constexpr int HALVES = BM / 64;
   static constexpr int A_STAGE = BM * BK * 2;
   static constexpr int STAGE = A_STAGE + 4 * B_BLOCK;
-  static constexpr int STAGES = RING_BYTES / STAGE;
-  static_assert(STAGES >= 2 && HALVES * BN / 2 <= 192,
-                "two stages, and at most 192 accumulators a thread");
+  static constexpr int STAGES = RING / STAGE;
+  static_assert(STAGES >= 2 && STAGES <= MAX_STAGES &&
+                    HALVES * BN / 2 <= 192,
+                "two or three stages, at most 192 accumulators a thread");
 };
-constexpr int MAX_STAGES = 3;
 // The producer copies reuse the ring as COPY_SLOTS pieces of PIECE bytes.
 constexpr int PIECE = 16384;
 constexpr int COPY_SLOTS = RING_BYTES / PIECE;
@@ -279,18 +281,20 @@ struct Mma<128> {
 
 // --- the block's shared memory ---------------------------------------------
 
-// The ring (aligned to 1 KB) and the mbarriers of one block's dynamic
-// shared memory. init() (every thread calls it once, at the start of the
-// kernel) sets each barrier to one arrival per phase.
+// The ring (aligned to 1 KB, ring_bytes long) and the mbarriers of one
+// block's dynamic shared memory (1 KB + ring_bytes + the barriers' 8 bytes
+// each). init() (every thread calls it once, at the start of the kernel)
+// sets each barrier to one arrival per phase.
 struct Smem {
   unsigned char* ring;
   uint64_t* stage_bar;  // MAX_STAGES
   uint64_t* copy_bar;   // COPY_SLOTS
 
-  __device__ __forceinline__ explicit Smem(unsigned char* raw) {
+  __device__ __forceinline__ explicit Smem(unsigned char* raw,
+                                           int ring_bytes = RING_BYTES) {
     const uint32_t a = smem_u32(raw);
     ring = raw + ((1024 - (a & 1023)) & 1023);
-    stage_bar = reinterpret_cast<uint64_t*>(ring + RING_BYTES);
+    stage_bar = reinterpret_cast<uint64_t*>(ring + ring_bytes);
     copy_bar = stage_bar + MAX_STAGES;
   }
   __device__ __forceinline__ void init() const {
@@ -312,19 +316,19 @@ using Acc = float[BM / 64][BN / 2];
 // The K loop of the tile at rows [m0, m0 + BM) and columns [n0, n0 + BN)
 // of plane `plane`: A from map ta ((K, rows, planes), boxes of BM rows), B
 // from map tb ((N, K, planes)). Every thread of the block (one warpgroup)
-// calls it. `it` counts the stage loads this block has made so far (each
-// stage's mbarrier phase follows from it) and is advanced; rows is the
-// plane's row count (an m64 half wholly past it multiplies nothing). Thread
-// 0 must not issue the first loads before whatever the tile waits on is
-// visible to the async proxy (the caller fences). The ring is free again on
-// return.
-template <int BM, int BN>
+// calls it, the ring RING bytes long (sm's). `it` counts the stage loads
+// this block has made so far (each stage's mbarrier phase follows from it)
+// and is advanced; rows is the plane's row count (an m64 half wholly past
+// it multiplies nothing). Thread 0 must not issue the first loads before
+// whatever the tile waits on is visible to the async proxy (the caller
+// fences). The ring is free again on return.
+template <int BM, int BN, int RING = RING_BYTES>
 __device__ __forceinline__ void mainloop(const CUtensorMap* ta,
                                          const CUtensorMap* tb, int plane,
                                          int m0, int n0, int K, int rows,
                                          const Smem& sm, uint32_t& it,
                                          Acc<BM, BN>& acc) {
-  using S = Shape<BM, BN>;
+  using S = Shape<BM, BN, RING>;
   constexpr uint32_t kBytes = S::A_STAGE + (BN / 32) * B_BLOCK;
 #pragma unroll
   for (int h = 0; h < S::HALVES; ++h)

@@ -91,13 +91,14 @@ SIGNATURES = {
     "tdt_notify_wait": [P, P, P, P, I64, I64, I64, U64, P],
     # The multi-rank kernels over world simulated ranks on one card.
     # a, staging, b, out, flags, ticket, epoch, world, m, K, n, cols, chunk
-    # rows, dtype, producer delay (ns), stream
+    # rows, dtype, tma (bf16: the wgmma tile), producer delay (ns), stream
     "tdt_ag_gemm": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64, I64, I32,
+                    I32, U64, P],
+    # a, b, out, staging, own (f32; null where the owner's product is
+    # folded in place), flags, ticket, epoch, world, M, k, N, dtype, tma
+    # (bf16: the wgmma tile), producer delay (ns), stream
+    "tdt_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I32, I32,
                     U64, P],
-    # a, b, out, staging, own (f32), flags, ticket, epoch, world, M, k, N,
-    # dtype, producer delay (ns), stream
-    "tdt_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I32, U64,
-                    P],
     # x, staging, out, flags, ticket, epoch, world, n, chunk elements,
     # dtype, producer delay (ns), stream
     "tdt_oneshot_ar": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
@@ -118,14 +119,15 @@ SIGNATURES = {
     # elements, dtype, producer delay (ns), stream
     "tdt_ring_rs": [P, P, P, P, P, U32, I64, I64, I64, I32, U64, P],
     # grids, staging, w, out, flags, ticket, epoch, world, E, cap, d, f,
-    # experts and rows per producer chunk, dtype, producer delay (ns),
-    # stream
+    # experts and rows per producer chunk, dtype, tma (bf16: the wgmma
+    # tile), producer delay (ns), stream
     "tdt_ag_group_gemm": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
-                          I64, I64, I32, U64, P],
-    # act, w, out, staging, own (f32), flags, ticket, epoch, world, E, cap,
-    # f, d, dtype, producer delay (ns), stream
+                          I64, I64, I32, I32, U64, P],
+    # act, w, out, staging, own (f32; null where the owner's product is
+    # folded in place), flags, ticket, epoch, world, E, cap, f, d, dtype,
+    # tma (bf16: the wgmma tile), producer delay (ns), stream
     "tdt_group_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
-                          I32, U64, P],
+                          I32, I32, U64, P],
     # x, out, flags, ticket, epoch, world, shard bytes, piece bytes,
     # producer delay (ns), stream
     "tdt_ring_ag": [P, P, P, P, U32, I64, I64, I64, U64, P],
@@ -272,15 +274,14 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 FLOAT_TYPES = (torch.float32, torch.bfloat16)
 
 
-def check_tma_rows(name: str, row_elems, *ts) -> None:
-    """bf16 operands of a kernel that reads them with TMA (the wgmma
-    tiles): every base 16-byte aligned and every row length in
-    ``row_elems`` a whole number of 16-byte units; raises otherwise."""
-    bad = [n for n in row_elems if n % 8]
-    if bad or any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: a bf16 call needs 16-byte aligned "
-                         f"operands and rows that are multiples of 8 "
-                         f"elements (TMA), got rows {list(row_elems)}")
+def tma_rows(row_elems, *ts) -> int:
+    """1 when TMA can read every one of the tensors ``ts`` (the ``wgmma``
+    tiles' operands): every base 16-byte aligned and every row length in
+    ``row_elems`` a whole number of 16-byte units of bf16; else 0, and the
+    kernel runs the same items on its ``mma.sync`` tile. Decided from the
+    shapes and pointers before the launch, and passed to it."""
+    return int(all(n % 8 == 0 for n in row_elems)
+               and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
 def dtype_code(t, allowed=FLOAT_TYPES) -> int:

@@ -13,8 +13,9 @@ one plain version, ``all_gather_ref``, holds both. The host wrapper
 ``all_gather`` (:221) takes the stacked shards and returns the gathered
 ``(world * m, ...)``, by the method ``choose_all_gather_method`` (:62) picks
 from the perf model. One card stands in for the group: the pushes go
-through device memory, not NVLink. The 2-D exchange (``method="ring_2d"``,
-a ``dcn_axis``) is not ported and raises.
+through device memory, not NVLink. The 2-D exchange (a ``dcn_axis``) is
+not ported and raises ``NotImplementedError``; ``method="ring_2d"`` without
+one raises JAX's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -166,9 +167,12 @@ def all_gather(x_stacked: torch.Tensor, *, world: int,
     copy (every rank's holds the same bits). AUTO asks
     ``choose_all_gather_method`` with one rank's bytes, by the figures of
     the card the tensor is on (a CPU tensor, which runs the plain version,
-    by the H100 SXM's). The 2-D exchange (``method="ring_2d"``, a
-    ``dcn_axis``) raises ``NotImplementedError``: its inter-slice leg cannot
-    be checked on one card."""
+    by the H100 SXM's). Every method but the ring runs the direct push,
+    ``"ll"`` too, as JAX's ``_build_ag`` does (the LL kernel needs a
+    persistent staging: ``kernels.ll_allgather``). ``"ring_2d"`` without a
+    ``dcn_axis`` raises JAX's ``ValueError``; a ``dcn_axis`` (the 2-D
+    exchange) raises ``NotImplementedError``: its inter-slice leg cannot be
+    checked on one card."""
     from triton_distributed_tpu_torch.runtime import perf_model as pm
 
     if x_stacked.dim() < 2 or x_stacked.shape[0] != world:
@@ -176,16 +180,17 @@ def all_gather(x_stacked: torch.Tensor, *, world: int,
                          f"shard stacked, (world, m, ...), got "
                          f"{tuple(x_stacked.shape)}")
     method = AllGatherMethod(method)
-    if dcn_axis is not None or method is AllGatherMethod.RING_2D:
+    if dcn_axis is not None:
         raise NotImplementedError("the 2-D allgather (ring_2d over a dcn "
                                   "axis) is not ported: see ROADMAP.md")
+    if method is AllGatherMethod.RING_2D:
+        raise ValueError("method ring_2d needs dcn_axis (a (dcn, ici) "
+                         "mesh; see runtime.mesh.make_2d_mesh)")
     if method is AllGatherMethod.AUTO:
         method = choose_all_gather_method(
             world, x_stacked[0].numel() * x_stacked.element_size(),
             hw=None if x_stacked.is_cuda else pm.H100_SXM)
-    if method is AllGatherMethod.LL:
-        raise ValueError("the LL allgather needs a persistent staging: use "
-                         "kernels.ll_allgather.ll_all_gather")
+    # Every method but the ring runs the direct push, LL too (JAX :267-273).
     run = ring_all_gather if method is AllGatherMethod.RING_1D else \
         a2a_all_gather
     out = run(x_stacked, world=world)

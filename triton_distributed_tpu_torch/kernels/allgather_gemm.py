@@ -183,7 +183,9 @@ def ag_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, cols: int,
     staging)``: out1 (world, world m, cols), staging (world, world, m, K)
     every rank's gathered A. ``staging`` (default: a new buffer) and
     ``producer_delay_ns`` (every producer item sleeps that long before its
-    copy) let a test poison the buffer and hold the gather back."""
+    copy) let a test poison the buffer and hold the gather back. bf16 runs
+    the ``wgmma`` tile where TMA can read every operand (``_build.tma_rows``)
+    and the ``mma.sync`` tile otherwise, in the same one launch."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("ag_gemm_cuda takes two tensors on one CUDA device")
     if a.dtype != b.dtype:
@@ -204,8 +206,8 @@ def ag_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, cols: int,
           or staging.device != a.device or not staging.is_contiguous()):
         raise ValueError(f"staging must be a contiguous {shape} {a.dtype} "
                          f"tensor on {a.device}")
-    if a.dtype == torch.bfloat16:
-        _build.check_tma_rows("ag_gemm_cuda", (k, n), a, b, staging)
+    tma = (_build.tma_rows((k, n), a, b, staging)
+           if a.dtype == torch.bfloat16 else 0)
     chunk_rows = min(m, STAGE_CHUNK_ROWS)
     flags = _signal.flags(a.device, "ag_gemm",
                           world * world * -(-m // chunk_rows))
@@ -215,7 +217,7 @@ def ag_gemm_cuda(a: torch.Tensor, b: torch.Tensor, *, cols: int,
     err = _build.lib().tdt_ag_gemm(
         a.data_ptr(), staging.data_ptr(), b.data_ptr(), out.data_ptr(),
         flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(a.device),
-        world, m, k, n, cols, chunk_rows, code, producer_delay_ns,
+        world, m, k, n, cols, chunk_rows, code, tma, producer_delay_ns,
         _build.stream_ptr(a))
     _build.check(err, "tdt_ag_gemm")
     AG_GEMM.launches += 1

@@ -138,6 +138,23 @@ def gemm_rs_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         torch.promote_types(a.dtype, b.dtype))
 
 
+def rs_plan(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+            staging: torch.Tensor,
+            own_shape) -> tuple[int, torch.Tensor | None]:
+    """``(tma, own)`` of a GEMM-RS or GroupGEMM-RS launch, decided from the
+    shapes and pointers before it: ``tma`` 1 for a bf16 call whose operands
+    TMA can read and whose tiles leave as 16-byte vectors (k and N multiples
+    of 8, every pointer 16-byte aligned: the ``wgmma`` items), else 0 (the
+    ``gemm_tile.cuh`` items); ``own`` the f32 scratch of the owners'
+    partials, ``own_shape``, or None where the ``wgmma`` items fold the
+    owner's product in place (segments of whole 128-row tiles)."""
+    tma = (_build.tma_rows((a.shape[-1], b.shape[-1]), a, b, out, staging)
+           if a.dtype == torch.bfloat16 else 0)
+    if tma and own_shape[-2] % TILE_M == 0:
+        return tma, None
+    return tma, torch.empty(own_shape, dtype=torch.float32, device=a.device)
+
+
 def gemm_rs_cuda(a: torch.Tensor, b: torch.Tensor, *,
                  staging: torch.Tensor | None = None,
                  producer_delay_ns: int = 0
@@ -148,7 +165,9 @@ def gemm_rs_cuda(a: torch.Tensor, b: torch.Tensor, *,
     M / world, N) the pushed partials as ``gemm_rs_fold`` gives them.
     ``staging`` (default: a new buffer) and ``producer_delay_ns`` (every
     product tile sleeps that long before it releases its flag) let a test
-    poison the slots and hold the partials back."""
+    poison the slots and hold the partials back. bf16 runs the ``wgmma``
+    items where ``rs_plan`` says TMA can read every operand, the
+    ``mma.sync`` tile otherwise, in the same one launch."""
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
         raise ValueError("gemm_rs_cuda takes two tensors on one CUDA device")
     if a.dtype != b.dtype:
@@ -173,14 +192,14 @@ def gemm_rs_cuda(a: torch.Tensor, b: torch.Tensor, *,
     tile = TILE_M if a.dtype == torch.bfloat16 else F32_TILE
     tiles = world * -(-M // tile) * -(-n // tile)
     flags = _signal.flags(a.device, "gemm_rs", tiles)
-    own = torch.empty((world, m, n), dtype=torch.float32, device=a.device)
     ticket = torch.empty(1, dtype=torch.int32, device=a.device)
     out = torch.empty((world, m, n), dtype=a.dtype, device=a.device)
+    tma, own = rs_plan(a, b, out, staging, (world, m, n))
     err = _build.lib().tdt_gemm_rs(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), staging.data_ptr(),
-        own.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
-        _signal.next_epoch(a.device), world, M, k, n, code,
-        producer_delay_ns, _build.stream_ptr(a))
+        None if own is None else own.data_ptr(), flags.data_ptr(),
+        ticket.data_ptr(), _signal.next_epoch(a.device), world, M, k, n,
+        code, tma, producer_delay_ns, _build.stream_ptr(a))
     _build.check(err, "tdt_gemm_rs")
     GEMM_RS.launches += 1
     return out, staging

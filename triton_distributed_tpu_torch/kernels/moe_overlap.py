@@ -37,6 +37,7 @@ from triton_distributed_tpu_torch.kernels.gemm_reduce_scatter import (
     F32_TILE,
     TILE_M,
     gemm_rs_fold,
+    rs_plan,
 )
 from triton_distributed_tpu_torch.kernels.moe_utils import (
     combine_from_experts,
@@ -147,7 +148,9 @@ def ag_group_gemm_cuda(grids: torch.Tensor, w_up: torch.Tensor, *,
     staging (world, E, world, cap, d) every rank's gathered grids.
     ``staging`` (default: a new buffer) and ``producer_delay_ns`` (every
     producer item sleeps that long before its copy) let a test poison the
-    buffer and hold the gather back."""
+    buffer and hold the gather back. bf16 runs the ``wgmma`` tile where
+    TMA can read every operand (``_build.tma_rows``) and the ``mma.sync``
+    tile otherwise, in the same one launch."""
     code = _cuda_operands("ag_group_gemm_cuda", grids, w_up)
     world, E, cap, d = grids.shape
     f = w_up.shape[3]
@@ -157,9 +160,8 @@ def ag_group_gemm_cuda(grids: torch.Tensor, w_up: torch.Tensor, *,
                          f"x {tuple(w_up.shape)}")
     staging = _staging("ag_group_gemm_cuda", staging,
                        (world, E, world, cap, d), grids)
-    if grids.dtype == torch.bfloat16:
-        _build.check_tma_rows("ag_group_gemm_cuda", (d, f), grids, w_up,
-                              staging)
+    tma = (_build.tma_rows((d, f), grids, w_up, staging)
+           if grids.dtype == torch.bfloat16 else 0)
     ec, rows = producer_chunk(cap, d, grids.element_size())
     flags = _signal.flags(grids.device, "ag_group_gemm",
                           world * world * -(-E // ec) * -(-cap // rows))
@@ -169,7 +171,7 @@ def ag_group_gemm_cuda(grids: torch.Tensor, w_up: torch.Tensor, *,
     err = _build.lib().tdt_ag_group_gemm(
         grids.data_ptr(), staging.data_ptr(), w_up.data_ptr(), up.data_ptr(),
         flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(grids.device),
-        world, E, cap, d, f, ec, rows, code, producer_delay_ns,
+        world, E, cap, d, f, ec, rows, code, tma, producer_delay_ns,
         _build.stream_ptr(grids))
     _build.check(err, "tdt_ag_group_gemm")
     AG_GROUP_GEMM.launches += 1
@@ -276,7 +278,9 @@ def group_gemm_rs_cuda(act: torch.Tensor, w_down: torch.Tensor, *,
     ``group_gemm_rs_ref`` gives them. ``staging`` (default: a new buffer)
     and ``producer_delay_ns`` (every product tile sleeps that long before
     it releases its flag) let a test poison the slots and hold the partials
-    back."""
+    back. bf16 runs the ``wgmma`` items where ``rs_plan`` says TMA can read
+    every operand, the ``mma.sync`` tile otherwise, in the same one
+    launch."""
     code = _cuda_operands("group_gemm_rs_cuda", act, w_down)
     world, E, rows, f = act.shape
     d = w_down.shape[3]
@@ -290,15 +294,14 @@ def group_gemm_rs_cuda(act: torch.Tensor, w_down: torch.Tensor, *,
     tile = TILE_M if act.dtype == torch.bfloat16 else F32_TILE
     flags = _signal.flags(act.device, "group_gemm_rs",
                           world * E * -(-rows // tile) * -(-d // tile))
-    own = torch.empty((world, E, cap, d), dtype=torch.float32,
-                      device=act.device)
     ticket = torch.empty(1, dtype=torch.int32, device=act.device)
     out = torch.empty((world, E, cap, d), dtype=act.dtype, device=act.device)
+    tma, own = rs_plan(act, w_down, out, staging, (world, E, cap, d))
     err = _build.lib().tdt_group_gemm_rs(
         act.data_ptr(), w_down.data_ptr(), out.data_ptr(), staging.data_ptr(),
-        own.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
-        _signal.next_epoch(act.device), world, E, cap, f, d, code,
-        producer_delay_ns, _build.stream_ptr(act))
+        None if own is None else own.data_ptr(), flags.data_ptr(),
+        ticket.data_ptr(), _signal.next_epoch(act.device), world, E, cap, f,
+        d, code, tma, producer_delay_ns, _build.stream_ptr(act))
     _build.check(err, "tdt_group_gemm_rs")
     GROUP_GEMM_RS.launches += 1
     return out, staging

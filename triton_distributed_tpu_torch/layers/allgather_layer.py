@@ -107,8 +107,9 @@ class AllGatherLayer:
             out = ring_all_gather(x_local, world=world)
         elif method is AllGatherMethod.ALL2ALL:
             out = a2a_all_gather(x_local, world=world)
-        else:  # RING_2D: JAX sends it to kernels.collective_2d
-            raise NotImplementedError(
-                "AllGatherLayer spans one mesh axis, and the hierarchical "
-                "2-D allgather (ring_2d) is not ported: see ROADMAP.md")
+        else:  # RING_2D: JAX :134-137
+            raise ValueError(
+                f"AllGatherLayer spans one mesh axis; method {method.value!r} "
+                f"is not supported here (use kernels.collective_2d for the "
+                f"hierarchical 2D path)")
         return (out, staging) if staging is not None else out
