@@ -2117,6 +2117,93 @@ def call_device_ms(fn, n: int = 20) -> float:
     return float("nan")
 
 
+def b2b_ms(fn, n: int = 200) -> float:
+    """Host clock per call over n back-to-back calls of fn with no flush
+    and one synchronize at the end (after a warm-up): what a caller's loop
+    sees, the host's launch path included wherever it outlasts the
+    device's work."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def collectives_back_to_back(tea, tnw, gen, tut, long_run, calls=100):
+    """``calls`` calls of each of the dispatch loopback and the ring, back
+    to back on one stream with no host reset and no synchronize between
+    them, alternating shapes and counts (full, 13 rows a slot, zero and
+    negative counts, at chunk_rows 128 and 8; the tutorial and the long
+    run). Then every result must match its plain version (the a2a bytes
+    below each count and the counts, the ring bit for bit) and every
+    self-reset signal must be back at 0: the loopback's ticket, and the
+    ring's arrival flags, ack counters and barrier counter."""
+    a2a = [a2a_inputs(gen, counts) for counts in (
+        [A2A_CAP] * A2A_WORLD, [A2A_LOW_COUNT] * A2A_WORLD,
+        [0, -1, 0, -128, 0, 0, -7, 0])]
+    rings = [(tut, TUTORIAL_CHUNK), (long_run, LONG_RUN_CHUNK)]
+    ctxs = [tea.AllToAllContext(capacity=A2A_CAP, hidden=A2A_HIDDEN,
+                                chunk_rows=ch) for ch in (A2A_CAP, 8)]
+    torch.cuda.synchronize()
+    runs = []
+    for i in range(calls):
+        toks, scales, counts, _ = a2a[i % 3]
+        runs.append(tea.a2a_loopback_cuda((toks, scales), counts,
+                                          ctx=ctxs[i % 2], world=A2A_WORLD))
+        t, ch = rings[i % 2]
+        runs.append(tnw.producer_consumer_cuda(t, chunk_rows=ch))
+    torch.cuda.synchronize()
+    for i in range(calls):
+        toks, scales, counts, live = a2a[i % 3]
+        (gt, gs), rc = runs[2 * i]
+        m = live[..., None]
+        if not (torch.equal(rc, counts)
+                and torch.equal(gt.view(torch.uint8) * m,
+                                toks.view(torch.uint8) * m)
+                and torch.equal(gs.view(torch.int32) * m,
+                                scales.view(torch.int32) * m)):
+            raise AssertionError(f"phase 6: a2a_loopback call {i} of "
+                                 f"{calls} back to back differs from its "
+                                 f"plain version")
+        t, _ = rings[i % 2]
+        if not torch.equal(runs[2 * i + 1], torch.roll(t, 1, 0)):
+            raise AssertionError(f"phase 6: notify_wait call {i} of {calls} "
+                                 f"back to back != roll(x, 1, 0)")
+    dev = tut.device
+    ticket = int(tea._signal.arrivals(dev, "a2a_loopback", 1)[0])
+    ring = tnw._signal.arrivals(dev, "notify_wait", 1)
+    if ticket != 0 or bool(ring.any()):
+        raise AssertionError(f"phase 6: a self-reset signal is not back at "
+                             f"0 after {calls} calls: ticket {ticket}, ring "
+                             f"signals {int(ring.count_nonzero())} nonzero")
+    say(f"phase 6: {calls} calls each of a2a_loopback and notify_wait back "
+        f"to back, no host reset: every result matches its plain version; "
+        f"the ticket and every ring signal are back at 0")
+
+
+def busy_device_ms(fn, n: int = 3) -> float:
+    """Device time of one call of a long kernel, where the profiler keeps
+    no record of it: CUDA events around n back-to-back calls enqueued
+    behind an L2 flush, so the device never waits for the host (each launch
+    is enqueued while the one before runs); the mean per call. Only
+    reports a time."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    flush.zero_()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def queue_after(x, chunk_rows):
     """What the ring's queue holds after a run of at least two chunks: rank
     r's slot s holds the last chunk that rank r - 1 pushed into it (chunk c
@@ -2209,6 +2296,7 @@ def phase_collectives(gen, kernels, card):
         say(f"phase 6: notify_wait {label} {tuple(t.shape)}, chunks of "
             f"{ch} rows: out == roll(x, 1, 0), each NaN queue slot holds "
             f"the last chunk pushed into it")
+    collectives_back_to_back(tea, tnw, gen, tut, long_run)
 
     # (b) The path, once, with the counts reset: bench.py's arms.
     a2a_ctx = tea.AllToAllContext(capacity=A2A_CAP, hidden=A2A_HIDDEN,
@@ -2291,12 +2379,23 @@ def phase_collectives(gen, kernels, card):
                                              ctx=a2a_ctx, world=A2A_WORLD),
                 reps=20)
     dst_t, dst_s = torch.empty_like(toks), torch.empty_like(scales)
-    t_l = timer(lambda: (dst_t.copy_(toks), dst_s.copy_(scales)), reps=50)
+
+    def copies():
+        dst_t.copy_(toks)
+        dst_s.copy_(scales)
+
+    t_l = timer(copies, reps=50)
+    b_k = b2b_ms(lambda: tea.a2a_loopback_cuda((toks, scales), counts,
+                                               ctx=a2a_ctx, world=A2A_WORLD))
+    b_l = b2b_ms(copies)
     rows["a2a_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                bound_ms=t_b, bound_by=by)
+                                bound_ms=t_b, bound_by=by, b2b_ms=b_k,
+                                library_b2b_ms=b_l)
     say(f"phase 6: a2a_loopback bench shape, full occupancy: kernel "
         f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, copy_ "
-        f"of both payloads {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+        f"of both payloads {t_l:.4f} ms, bound {t_b:.4f} ms ({by}); host "
+        f"clock back to back, per call: kernel {b_k:.4f} ms, copy_ "
+        f"{b_l:.4f} ms [{card}]")
     lk, ld, (lb, _) = a2a_t["10%"]
     say(f"phase 6: a2a_loopback at {A2A_LOW_COUNT} rows a slot (~10%): "
         f"kernel {lk:.4f} ms (device alone {ld:.4f}), bound {lb:.4f} ms; "
@@ -2333,12 +2432,17 @@ def phase_collectives(gen, kernels, card):
         t_d = kernel_device_ms(lambda: tnw.producer_consumer_cuda(
             t, chunk_rows=ch), "notify_wait_kernel")
         t_l = timer(lambda: torch.roll(t, 1, 0), reps=50)
+        b_k = b2b_ms(lambda: tnw.producer_consumer_cuda(t, chunk_rows=ch))
+        b_l = b2b_ms(lambda: torch.roll(t, 1, 0))
         t_b, by = bound_ms(0, nb)
         tut_rows[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                               bound_ms=t_b, bound_by=by)
+                               bound_ms=t_b, bound_by=by, b2b_ms=b_k,
+                               library_b2b_ms=b_l)
         say(f"phase 6: notify_wait {label} {tuple(t.shape)}: kernel "
             f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, "
-            f"torch.roll {t_l:.4f} ms, bound {t_b:.6f} ms ({by}) [{card}]")
+            f"torch.roll {t_l:.4f} ms, bound {t_b:.6f} ms ({by}); host "
+            f"clock back to back, per call: kernel {b_k:.4f} ms, "
+            f"torch.roll {b_l:.4f} ms [{card}]")
     rows["notify_wait"] = tut_rows["tutorial shape"]
 
     # bench.py's decomposition (:3108, :3119-3126): the arms timed in turns,
@@ -2911,9 +3015,17 @@ def phase_ep_kernels(gen, kernels, card):
                                             ctx=tea.AllToAllContext(
                                                 capacity=EP_DECODE_CAP,
                                                 hidden=MOE_D), world=w))
+    row_bytes = [p[0, 0, 0].numel() * p.element_size() for p in dpays]
+    t_b, by = bound_ms(0, pm.ep_a2a_bytes(EP_DECODE_COUNTS, EP_DECODE_CAP,
+                                          row_bytes))
+    t_l = timer(lambda: (dpays[0].transpose(0, 1).contiguous(),
+                         dpays[1].transpose(0, 1).contiguous(),
+                         dcounts.T.contiguous()), reps=50)
     say(f"phase 8: ep_a2a at the decode shape: kernel "
         f"{timer(run, reps=50):.4f} ms, device alone "
-        f"{kernel_device_ms(run, 'ep_a2a_kernel'):.4f} ms [{card}]")
+        f"{kernel_device_ms(run, 'ep_a2a_kernel'):.4f} ms, library "
+        f"{t_l:.4f} ms (the three transpose copies), bound {t_b:.6f} ms "
+        f"({by}) [{card}]")
     return err, {"ep_a2a": rows["balanced"]}
 
 
@@ -3739,9 +3851,12 @@ def phase_sp(gen, kernels, card):
                                          reps=10),
                           library_ms=t_l, bound_ms=t_b, bound_by=by)
         xd = xs["decode"]
+        lib_d = timer(lambda: xd.reshape(1, -1, xd.shape[2]).expand(
+            w, -1, -1).contiguous(), reps=20)
         say(f"phase 10: {name} at the decode shape {tuple(xd.shape)}: kernel "
             f"{timer(lambda: run(xd), reps=20):.4f} ms, device alone "
-            f"{kernel_device_ms(lambda: run(xd), kern):.4f} ms, bound "
+            f"{kernel_device_ms(lambda: run(xd), kern):.4f} ms, library "
+            f"{lib_d:.4f} ms (the same copy), bound "
             f"{bound_ms(0, pm.all_gather_bytes(w, xd[0].numel() * 2))[0]:.4f}"
             f" ms [{card}]")
     xl = randn(gen, w, SP_B * SP_HQ, feat, dtype=torch.float32)
@@ -3793,9 +3908,15 @@ def phase_sp(gen, kernels, card):
     qg, kg, vg = (t.permute(1, 0, 2, 3).reshape(1, SP_HQ, w * SP_M, SP_DH)
                   for t in (q_pre, k_pre, v_pre))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    t_d = kernel_device_ms(run_sp, "sp_ag_attn_kernel", n=3)
+    if not math.isfinite(t_d):
+        t_d = busy_device_ms(run_sp, n=3)
+        say(f"phase 10: sp_ag_attn device time by CUDA events over 3 "
+            f"back-to-back launches (the host's launch path hidden behind "
+            f"the kernel): {t_d:.4f} ms [{card}]")
     rows["sp_ag_attn"] = dict(
         ms=timer(run_sp, reps=3, warmup=1),
-        device_ms=kernel_device_ms(run_sp, "sp_ag_attn_kernel", n=3),
+        device_ms=t_d,
         plain_ms=timer(lambda: tsp.sp_ag_attention_ref(q_pre, k_pre, v_pre),
                        reps=1, warmup=0),
         library_ms=timer(lambda: sdpa(qg, kg, vg, is_causal=True), reps=3,
@@ -3949,7 +4070,8 @@ def main() -> int:
             replaces=kern.replaces, launches=launches[name],
             max_abs_err=err[name], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"]))
+            library_ms=row["library_ms"],
+            **{k: row[k] for k in ("b2b_ms", "library_b2b_ms") if k in row}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": record}))
     say(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ a copy, so exact; the layers fp32 ``rtol=atol=1e-5``; tokens identical.
 Inputs come from numpy seeds."""
 
 import importlib.util
+import math
 import sys
 from pathlib import Path
 
@@ -151,6 +152,91 @@ def test_a2a_loopback_rejects_a_layout_that_is_not_world_by_capacity():
     ctx = tea.AllToAllContext(capacity=8, hidden=4)
     with pytest.raises(ValueError, match="capacity=8"):
         tea.a2a_loopback(torch.zeros(8, 16, 4), torch.zeros(8), ctx=ctx)
+
+
+# The launch plan's shapes: (world, capacity, chunk_rows, piece_bytes, each
+# payload's trailing shape and dtype). bench.py's dispatch (fp8 tokens of
+# 7,168 and f32 scales of 128) at one chunk and at chunks of 8; rows that
+# do not split into whole pieces; a row larger than a piece; one byte rows.
+A2A_PLANS = [
+    (8, 128, 128, tea.PIECE_BYTES,
+     [((7168,), torch.float8_e4m3fn), ((128,), torch.float32)]),
+    (8, 128, 8, tea.PIECE_BYTES,
+     [((7168,), torch.float8_e4m3fn), ((128,), torch.float32)]),
+    (3, 24, 8, 1000, [((5, 7), torch.bfloat16)]),
+    (2, 16, 16, 4096, [((3000,), torch.float32), ((1,), torch.uint8),
+                       ((2, 2), torch.int32)]),
+    (1, 8, 8, 1, [((4,), torch.int8)] * 4)]
+
+
+@pytest.mark.parametrize("world,cap,ch,piece_bytes,pays", A2A_PLANS)
+def test_a2a_plan_matches_a_direct_computation(world, cap, ch, piece_bytes,
+                                               pays):
+    """The cached launch plan of ``a2a_loopback_cuda`` against the
+    geometry computed from its definition: bytes a row, rows a piece (about
+    ``piece_bytes``, at least one, at most a chunk), and one piece item per
+    (slot, chunk, piece) of every payload; the size arrays the C entry
+    reads hold the same numbers."""
+    payloads = [torch.zeros(world, cap, *shape, dtype=dtype)
+                for shape, dtype in pays]
+    plan = tea._a2a_plan(payloads, cap, ch, world, piece_bytes)
+    row_bytes = [int(np.prod(shape)) * torch.empty(0, dtype=dtype)
+                 .element_size() for shape, dtype in pays]
+    piece_rows = [max(1, min(ch, piece_bytes // rb)) for rb in row_bytes]
+    items = sum(world * (cap // ch) * math.ceil(ch / pr)
+                for pr in piece_rows)
+    assert plan.row_bytes == tuple(row_bytes)
+    assert plan.piece_rows == tuple(piece_rows)
+    assert plan.items == items
+    assert list(plan.c_row_bytes) == row_bytes
+    assert list(plan.c_piece_rows) == piece_rows
+    assert len(plan.c_pointers(*range(len(pays)))) == len(pays)
+
+
+def test_a2a_plan_is_cached_and_renewed_when_a_shape_changes():
+    """One plan serves every call with the same shapes, dtypes and
+    geometry; a new hidden width, dtype, chunk, world or piece size makes a
+    new one, and a payload with empty rows raises as the launch did."""
+    toks = torch.zeros(8, 128, 7168, dtype=torch.float8_e4m3fn)
+    scales = torch.zeros(8, 128, 128)
+    plan = tea._a2a_plan((toks, scales), 128, 128, 8, tea.PIECE_BYTES)
+    assert tea._a2a_plan([toks.clone(), scales.clone()], 128, 128, 8,
+                         tea.PIECE_BYTES) is plan
+    for other in (
+            tea._a2a_plan((toks[..., :4096], scales), 128, 128, 8,
+                          tea.PIECE_BYTES),
+            tea._a2a_plan((toks.view(torch.uint8), scales), 128, 128, 8,
+                          tea.PIECE_BYTES),
+            tea._a2a_plan((toks, scales), 128, 8, 8, tea.PIECE_BYTES),
+            tea._a2a_plan((toks[:4], scales[:4]), 128, 128, 4,
+                          tea.PIECE_BYTES),
+            tea._a2a_plan((toks, scales), 128, 128, 8, 128 * 7168)):
+        assert other is not plan
+    assert tea._a2a_plan((toks[..., :4096], scales), 128, 128, 8,
+                         tea.PIECE_BYTES).row_bytes == (4096, 512)
+    with pytest.raises(ValueError, match="non-empty rows"):
+        tea._a2a_plan((torch.zeros(8, 16, 0),), 16, 8, 8, tea.PIECE_BYTES)
+
+
+def test_collective_wrappers_refuse_as_before():
+    """The launchers' refusals, in their order: the layout, the number of
+    payloads, the card, for the dispatch loopback; the chunking and the
+    card for the ring. None of them launches."""
+    ctx = tea.AllToAllContext(capacity=8, hidden=4)
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="capacity=8"):
+        tea.a2a_loopback_cuda(torch.zeros(8, 16, 4), torch.zeros(8),
+                              ctx=ctx)
+    with pytest.raises(ValueError, match="1 to 4 payloads"):
+        tea.a2a_loopback_cuda([torch.zeros(8, 8, 4)] * 5, torch.zeros(8),
+                              ctx=ctx)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tea.a2a_loopback_cuda(torch.zeros(8, 8, 4), torch.zeros(8), ctx=ctx)
+    with pytest.raises(ValueError, match="n_chunks"):
+        tnw.producer_consumer_cuda(torch.zeros(8, 6, 4), chunk_rows=4)
+    with pytest.raises(ValueError, match="contiguous CUDA tensor"):
+        tnw.producer_consumer_cuda(torch.zeros(8, 8, 4), chunk_rows=4)
+    assert _no_launches()
 
 
 # -- 3. the notify/wait tutorial's ring -----------------------------------

@@ -714,6 +714,99 @@ def test_notify_wait_refuses_ranks_the_card_cannot_hold(cuda):
         tnw.producer_consumer_cuda(x, chunk_rows=1)
 
 
+def _a2a_case(gen, cap, hidden, counts, cuda):
+    """fp8 tokens and f32 scales (NaN past each count) and the counts."""
+    toks = _randn(gen, 8, cap, hidden, dtype=torch.float32).to(
+        torch.float8_e4m3fn)
+    scales = _randn(gen, 8, cap, 128, dtype=torch.float32)
+    counts = torch.tensor(counts, dtype=torch.int32, device=cuda)
+    live = (torch.arange(cap, device=cuda)[None]
+            < counts.clamp(0, cap)[:, None])[..., None]
+    toks.view(torch.uint8)[~live[..., 0]] = 0x7F
+    scales[~live[..., 0]] = float("nan")
+    return toks, scales, counts, live
+
+
+def _signals_at_zero(dev, stream) -> bool:
+    """The dispatch loopback's persistent ticket and the ring's signals on
+    the stream whose handle is given are back at 0."""
+    from triton_distributed_tpu_torch.kernels import _signal
+    ticket = _signal._ARRIVALS[(dev, stream, "a2a_loopback")][0]
+    ring = _signal._ARRIVALS[(dev, stream, "notify_wait")]
+    return int(ticket) == 0 and not bool(ring.any())
+
+
+@pytest.mark.parametrize("two_streams", [False, True])
+def test_collectives_back_to_back_without_host_resets(cuda, two_streams):
+    """The dispatch loopback and the ring 40 times each, back to back with
+    no host reset and no synchronize, alternating shapes and counts (full,
+    13 rows a slot, zero and negative; the tutorial and a 32-chunk run),
+    on one stream or two: every result matches its plain version, rows
+    past a count stay untouched in NaN-poisoned receive buffers, and every
+    self-reset ticket, counter and flag is back at 0 at the end."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    cap, hidden = 128, 7168
+    a2a = [_a2a_case(gen, cap, hidden, c, cuda) for c in (
+        [cap] * 8, [13] * 8, [0, -4, 128, 1, 0, 200, 64, -1])]
+    rings = [(_randn(gen, 8, 16, 128, dtype=torch.float32), 4),
+             (_randn(gen, 8, 32 * 64, 128, dtype=torch.float32), 64)]
+    streams = [torch.cuda.Stream(cuda) for _ in range(1 + two_streams)]
+    torch.cuda.synchronize()
+    runs = []
+    _build.reset_counts()
+    for i in range(40):
+        with torch.cuda.stream(streams[i % len(streams)]):
+            toks, scales, counts, live = a2a[i % 3]
+            ctx = tea.AllToAllContext(capacity=cap, hidden=hidden,
+                                      chunk_rows=cap if i % 2 else 8)
+            recv = (torch.full_like(toks.view(torch.uint8), 0x7F).view(
+                toks.dtype), torch.full_like(scales, float("nan")))
+            runs.append(("a2a", i % 3, tea.a2a_loopback_cuda(
+                (toks, scales), counts, ctx=ctx, recv=recv)))
+            x, ch = rings[i % 2]
+            runs.append(("ring", i % 2, tnw.producer_consumer_cuda(
+                x, chunk_rows=ch)))
+    torch.cuda.synchronize()
+    assert tea.A2A_LOOPBACK.launches == 40 and tnw.NOTIFY_WAIT.launches == 40
+    for kind, j, got in runs:
+        if kind == "ring":
+            x, _ = rings[j]
+            assert torch.equal(got, torch.roll(x, 1, 0))
+            continue
+        toks, scales, counts, live = a2a[j]
+        (gt, gs), rc = got
+        assert torch.equal(rc, counts)
+        # Below each count the sent bytes; past it the poison, untouched.
+        assert torch.equal(gt.view(torch.uint8), toks.view(torch.uint8))
+        assert torch.equal(gs.view(torch.int32), scales.view(torch.int32))
+    for s in streams:
+        assert _signals_at_zero(rings[0][0].device, s.cuda_stream)
+
+
+def test_notify_wait_default_queue_persists_per_stream(cuda):
+    """The default queue is one buffer per (device, stream, shape): two
+    calls on one stream share it, another stream gets its own, and a NaN
+    left in it by an earlier call does not reach the result."""
+    x = _randn(torch.Generator(device=cuda).manual_seed(5), 8, 64 * 8, 128,
+               dtype=torch.float32)
+    key = (x.device, torch.cuda.current_stream(cuda).cuda_stream,
+           (8, 2, 64, 128), x.dtype)
+    a = tnw.producer_consumer_cuda(x, chunk_rows=64)
+    queue = tnw._QUEUES[key]
+    queue.fill_(float("nan"))
+    b = tnw.producer_consumer_cuda(x, chunk_rows=64)
+    assert tnw._QUEUES[key] is queue
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        c = tnw.producer_consumer_cuda(x, chunk_rows=64)
+    torch.cuda.synchronize()
+    other = tnw._QUEUES[(x.device, side.cuda_stream, *key[2:])]
+    assert other.data_ptr() != queue.data_ptr()
+    want = torch.roll(x, 1, 0)
+    assert torch.equal(a, want) and torch.equal(b, want) and \
+        torch.equal(c, want)
+
+
 # -- the multi-rank kernels (world simulated ranks on one card) -----------
 
 def _exact_operands(gen, world, M, k, N, dtype, cuda):

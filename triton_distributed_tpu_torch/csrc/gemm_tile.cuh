@@ -28,6 +28,9 @@
 // Columns and K past the matrix are masked the same way.
 #pragma once
 
+#include <mutex>
+#include <vector>
+
 #include "common.cuh"
 
 namespace tdt {
@@ -349,6 +352,48 @@ __device__ __forceinline__ int take_ticket(int* counter) {
   return t;
 }
 
+// Blocks the current device holds at once of a kernel of `threads` threads
+// and `smem` bytes of dynamic shared memory (SMs x blocks an SM). The
+// answer is cached per (kernel, threads, shared memory, device): the
+// device and occupancy queries cost the host microseconds, and a short
+// call would otherwise pay them every time. A kernel whose shared memory
+// limit is raised (cudaFuncSetAttribute) raises it before each query, to
+// the same value for the same kernel. Errors are not cached.
+inline cudaError_t resident_blocks(const void* kernel, int threads,
+                                   size_t smem, long long* cap) {
+  struct Entry {
+    const void* kernel;
+    int threads, device;
+    size_t smem;
+    long long cap;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> cache;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (const Entry& e : cache)
+      if (e.kernel == kernel && e.threads == threads && e.smem == smem &&
+          e.device == device) {
+        *cap = e.cap;
+        return cudaSuccess;
+      }
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *cap = (long long)per_sm * sms;
+  std::lock_guard<std::mutex> lock(mu);
+  cache.push_back(Entry{kernel, threads, device, smem, *cap});
+  return cudaSuccess;
+}
+
 // Blocks of a persistent grid for a kernel of `threads` threads and `smem`
 // bytes of dynamic shared memory: as many as the card holds at once, and no
 // more than `work` items. A block that waits on another's item can then
@@ -357,17 +402,10 @@ __device__ __forceinline__ int take_ticket(int* counter) {
 template <class Kernel>
 inline cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
                                      long long work, unsigned* blocks) {
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
+  long long cap = 0;
+  const cudaError_t err = resident_blocks(
+      reinterpret_cast<const void*>(kernel), threads, smem, &cap);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = (long long)per_sm * sms;
   *blocks = (unsigned)(work < cap ? work : cap);
   return cudaSuccess;
 }

@@ -9,10 +9,13 @@
 // number); a counter is ADDed to. A waiter spins until the word has
 // reached its value, compared wrap-safe, so a flag raised to an older
 // epoch reads as "not yet" and needs no reset between calls. A counter
-// does need one: the host zeroes counters on the stream before each
-// launch (kernels/_signal.py), so nothing an earlier call added can satisfy
-// a wait of this one. The TPU's semaphores only add (primitives.py:80-84);
-// on this card both kinds exist, and flow control needs the counter.
+// (and a flag raised to a use number) does need one: the kernel that
+// counts on it leaves it at 0 when it is done with it (the last block to
+// arrive, or the waiter that saw its last raise, clears it), so nothing an
+// earlier call added can satisfy a wait of this one, and the host never
+// resets it (kernels/_signal.py arrivals). The TPU's semaphores only add
+// (primitives.py:80-84); on this card both kinds exist, and flow control
+// needs the counter.
 //
 // Order. A producer block's threads store their data, meet at
 // __syncthreads, and then one thread fences and releases the signal
@@ -74,8 +77,12 @@ __device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
 // Spin until *sig has reached value (wrap-safe), or trap after
 // kSpinCycles. One thread of the block calls it; the block then meets at a
 // barrier before it reads what the signal guards. Returns the value read.
+// Between reads the thread sleeps about sleep_ns; 0 spins without a sleep
+// (a waiter whose signal is on its critical path and whose SM has little
+// else to run).
 __device__ __forceinline__ uint32_t signal_wait_until(const uint32_t* sig,
-                                                      uint32_t value) {
+                                                      uint32_t value,
+                                                      unsigned sleep_ns = 64) {
   const long long t0 = clock64();
   uint32_t v;
   while (static_cast<int32_t>((v = ld_acquire(sig)) - value) < 0) {
@@ -84,14 +91,15 @@ __device__ __forceinline__ uint32_t signal_wait_until(const uint32_t* sig,
              blockIdx.x, v, value);
       __trap();
     }
-    __nanosleep(64);
+    if (sleep_ns) __nanosleep(sleep_ns);
   }
   return v;
 }
 
 // primitives.py's wait (:51): the same spin.
-__device__ __forceinline__ uint32_t wait(const uint32_t* sig, uint32_t value) {
-  return signal_wait_until(sig, value);
+__device__ __forceinline__ uint32_t wait(const uint32_t* sig, uint32_t value,
+                                         unsigned sleep_ns = 64) {
+  return signal_wait_until(sig, value, sleep_ns);
 }
 
 // Release a signal: SET stores value, ADD adds it. Every write this thread
@@ -149,6 +157,37 @@ __device__ __forceinline__ void copy_block(void* dst, const void* src,
   }
 }
 
+// Copy nbytes from src to dst with n threads (tid: this thread's index
+// among them), in rounds of U 16-byte moves a thread when both pointers
+// and nbytes allow it, else bytes. Every load of a round is issued before
+// its first store, the last round's tail predicated, so a copy of fewer
+// than U x n moves is ONE round trip (copy_block's tail loop moves one
+// 16-byte value at a time, a round trip each). Loads and stores go through
+// L2 only.
+template <int U>
+__device__ __forceinline__ void copy_rounds(void* dst, const void* src,
+                                            size_t nbytes, int tid, int n) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) |
+        nbytes) & 15) == 0) {
+    const uint4* s = static_cast<const uint4*>(src);
+    uint4* d = static_cast<uint4*>(dst);
+    const size_t n16 = nbytes / 16;
+    for (size_t i = tid; i < n16; i += (size_t)U * n) {
+      uint4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + (size_t)u * n < n16) v[u] = __ldcg(s + i + (size_t)u * n);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + (size_t)u * n < n16) __stcg(d + i + (size_t)u * n, v[u]);
+    }
+  } else {
+    const unsigned char* s = static_cast<const unsigned char*>(src);
+    unsigned char* d = static_cast<unsigned char*>(dst);
+    for (size_t i = tid; i < nbytes; i += n) __stcg(d + i, __ldcg(s + i));
+  }
+}
+
 // shmem.py's putmem_signal: the block copies nbytes, meets at a barrier,
 // and one thread fences and releases the signal. Every thread of the block
 // calls it.
@@ -166,14 +205,16 @@ __device__ __forceinline__ void putmem_signal(void* dst, const void* src,
 
 // primitives.py's barrier_all (:113) over the blocks of one cooperative
 // launch: round k (1, 2, ...) of a call adds one per block to *count and
-// waits until it reads k x gridDim.x. *count is a counter: zero when the
-// call starts. Every thread of every block calls it.
-__device__ __forceinline__ void barrier_all(uint32_t* count, uint32_t round) {
+// waits until it reads k x gridDim.x (sleeping sleep_ns between reads,
+// as signal_wait_until). *count is a counter: zero when the call starts.
+// Every thread of every block calls it.
+__device__ __forceinline__ void barrier_all(uint32_t* count, uint32_t round,
+                                            unsigned sleep_ns = 64) {
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     signal_op(count, 1, SIGNAL_ADD);
-    signal_wait_until(count, round * gridDim.x);
+    signal_wait_until(count, round * gridDim.x, sleep_ns);
   }
   __syncthreads();
 }

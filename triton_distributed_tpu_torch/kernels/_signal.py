@@ -1,20 +1,20 @@
 """Host side of ``csrc/language.cuh``'s signals: flag buffers with
-epochs, counters zeroed on the stream, and arrival counters that their
-kernel resets.
+epochs, and arrival buffers that their kernels leave at 0.
 
 A flag buffer is a persistent zeroed ``uint32`` array per (stream, name),
 grown on demand and never reset: each call takes a new epoch (a per-device
 counter) and its producers raise flags to that epoch, so the flags of an
 earlier call read as "not yet" to a later one; when the counter wraps, the
-device's flag buffers are zeroed first (``next_epoch``). A counter buffer
-(cells that kernels ADD to, ``SIGNAL_ADD``) is zeroed on the stream right
-before each call's launch, so nothing an earlier call added can satisfy a
-wait of this one. An arrival counter buffer (``arrivals``: cells that a
-kernel ADDs to and that the last block to arrive resets to 0, as the
-split-KV decode's merge does) is zeroed once, when it is made, and every
-launch that uses it leaves it at 0, so the host never resets it. Calls on
-one stream run in order, and calls on two streams use two buffers, so no
-call's signals are raised while another's are awaited.
+device's flag buffers are zeroed first (``next_epoch``). An arrival buffer
+(``arrivals``: counters that a kernel ADDs to, flags raised to a use number,
+tickets) is zeroed once, when it is made, and every launch that uses it
+leaves it at 0 (the last block to arrive or to leave resets what it
+counted, as the split-KV decode's merge, the all-to-all loopback's ticket
+and the notify/wait ring do), so the host never resets it and a call makes
+no memset. Calls on one stream run in order, and calls on two streams use
+two buffers, so no call's signals are raised while another's are awaited.
+The stream is the current one of ``device`` unless the caller passes its
+handle (``cuda_stream``), which saves a query on a short call's host path.
 """
 
 from __future__ import annotations
@@ -22,14 +22,15 @@ from __future__ import annotations
 import torch
 
 _FLAGS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
-_COUNTERS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
 _ARRIVALS: dict[tuple[torch.device, int, str], torch.Tensor] = {}
 _EPOCH: dict[torch.device, int] = {}
 
 
-def _buffer(store: dict, device: torch.device, name: str,
-            n: int) -> torch.Tensor:
-    key = (device, torch.cuda.current_stream(device).cuda_stream, name)
+def _buffer(store: dict, device: torch.device, name: str, n: int,
+            stream: int | None) -> torch.Tensor:
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, stream, name)
     buf = store.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
@@ -37,25 +38,19 @@ def _buffer(store: dict, device: torch.device, name: str,
     return buf
 
 
-def flags(device: torch.device, name: str, n: int) -> torch.Tensor:
+def flags(device: torch.device, name: str, n: int,
+          stream: int | None = None) -> torch.Tensor:
     """At least ``n`` flags of ``name`` for the current stream of
     ``device`` (int32 storage that the kernels read as uint32)."""
-    return _buffer(_FLAGS, device, name, n)
+    return _buffer(_FLAGS, device, name, n, stream)
 
 
-def counters(device: torch.device, name: str, n: int) -> torch.Tensor:
-    """``n`` counters of ``name`` for the current stream of ``device``,
-    zeroed on that stream now: the launch that follows starts from 0."""
-    buf = _buffer(_COUNTERS, device, name, n)[:n]
-    buf.zero_()
-    return buf
-
-
-def arrivals(device: torch.device, name: str, n: int) -> torch.Tensor:
-    """At least ``n`` arrival counters of ``name`` for the current stream
-    of ``device``: zeroed when made, and reset to 0 by the kernel that
-    counts on them (its last arriving block), never by the host."""
-    return _buffer(_ARRIVALS, device, name, n)
+def arrivals(device: torch.device, name: str, n: int,
+             stream: int | None = None) -> torch.Tensor:
+    """At least ``n`` arrival cells of ``name`` for the current stream of
+    ``device``: zeroed when made, and left at 0 by every launch of the
+    kernel that uses them, never reset by the host."""
+    return _buffer(_ARRIVALS, device, name, n, stream)
 
 
 def next_epoch(device: torch.device) -> int:

@@ -251,15 +251,66 @@ def a2a_loopback_ref(payloads, send_counts, *, ctx: AllToAllContext,
     return (out[0] if single else tuple(out)), counts.clone()
 
 
+@dataclasses.dataclass(frozen=True)
+class A2APlan:
+    """The launch geometry of ``a2a_loopback_cuda`` for one set of payload
+    shapes and dtypes, ``capacity``, ``chunk_rows``, ``world`` and
+    ``piece_bytes``: each payload's bytes per row and rows per piece, the
+    piece items over every payload, and the two size arrays in the C
+    entry's ``ctypes`` form (read-only, so one plan serves every call)."""
+
+    row_bytes: tuple[int, ...]
+    piece_rows: tuple[int, ...]
+    items: int
+    c_row_bytes: ctypes.Array
+    c_piece_rows: ctypes.Array
+    c_pointers: type  # ctypes.c_void_p * n_payloads
+
+
+_A2A_PLANS: dict[tuple, A2APlan] = {}
+
+
+def _a2a_plan(payloads, capacity: int, chunk_rows: int, world: int,
+              piece_bytes: int) -> A2APlan:
+    """The cached plan of these payloads' shapes and dtypes (made on first
+    use; raises on empty rows, as the launch did)."""
+    key = (*[(p.shape, p.dtype) for p in payloads], capacity, chunk_rows,
+           world, piece_bytes)
+    plan = _A2A_PLANS.get(key)
+    if plan is None:
+        row_bytes = tuple(p.numel() // (world * capacity) * p.element_size()
+                          for p in payloads)
+        if min(row_bytes) < 1:
+            raise ValueError("a2a_loopback_cuda takes non-empty rows")
+        piece_rows = tuple(min(chunk_rows, max(1, piece_bytes // rb))
+                           for rb in row_bytes)
+        n = len(payloads)
+        plan = A2APlan(
+            row_bytes, piece_rows,
+            sum(world * (capacity // chunk_rows) * -(-chunk_rows // pr)
+                for pr in piece_rows),
+            (ctypes.c_longlong * n)(*row_bytes),
+            (ctypes.c_longlong * n)(*piece_rows), ctypes.c_void_p * n)
+        _A2A_PLANS[key] = plan
+    return plan
+
+
 def a2a_loopback_cuda(payloads, send_counts, *, ctx: AllToAllContext,
-                      world: int = 8, piece_bytes: int = PIECE_BYTES):
+                      world: int = 8, piece_bytes: int = PIECE_BYTES,
+                      recv=None):
     """Launch ``csrc/a2a_loopback.cu`` on the current stream. Payloads of
     any dtype (fp8 included, never converted), contiguous, on one card;
     ``send_counts`` (world,) int32, read on the device only. Returns
     ``(recv_payloads, recv_counts)``; received rows past a count are
-    unspecified. ``piece_bytes`` is the work item's size inside a chunk
-    (one item per chunk when it holds a whole chunk: the timing of the
-    pieces against that)."""
+    unspecified (the kernel neither reads nor writes them). ``piece_bytes``
+    is the work item's size inside a chunk (one item per chunk when it
+    holds a whole chunk: the timing of the pieces against that); ``recv``
+    (one contiguous buffer per payload, like it; default new
+    ``torch.empty_like`` ones) lets a test poison the receive buffers. The
+    launch geometry is a cached plan (``_a2a_plan``); the count cells and
+    the ticket are a persistent per-stream buffer (``_signal.arrivals``)
+    that the kernel leaves at 0, so the call allocates only what it
+    returns and makes one device operation, the launch."""
     single, payloads = _as_tuple(payloads)
     _check_layout(payloads, ctx, world)
     if not 1 <= len(payloads) <= MAX_PAYLOADS:
@@ -271,31 +322,38 @@ def a2a_loopback_cuda(payloads, send_counts, *, ctx: AllToAllContext,
                              "device")
         if not pay.is_contiguous():
             raise ValueError("a2a_loopback_cuda takes contiguous payloads")
-    counts = torch.as_tensor(send_counts, dtype=torch.int32, device=dev)
+    counts = send_counts
+    if not (isinstance(counts, torch.Tensor) and counts.dtype == torch.int32
+            and counts.device == dev):
+        counts = torch.as_tensor(counts, dtype=torch.int32, device=dev)
     if counts.shape != (world,):
         raise ValueError(f"send_counts {tuple(counts.shape)} != ({world},)")
     counts = counts.contiguous()
     cap, ch = ctx.capacity, ctx.chunk_rows
-    recvs = [torch.empty_like(pay) for pay in payloads]
-    row_bytes = [pay.numel() // (world * cap) * pay.element_size()
-                 for pay in payloads]
-    if min(row_bytes) < 1:
-        raise ValueError("a2a_loopback_cuda takes non-empty rows")
-    piece_rows = [min(ch, max(1, piece_bytes // rb)) for rb in row_bytes]
-    items = sum(world * (cap // ch) * -(-ch // pr) for pr in piece_rows)
-    n = len(payloads)
-    flags = _signal.flags(dev, "a2a_loopback", items + 2 * world)
-    cells = torch.empty(world, dtype=torch.int32, device=dev)
+    plan = _a2a_plan(payloads, cap, ch, world, piece_bytes)
+    if recv is None:
+        recvs = [torch.empty_like(pay) for pay in payloads]
+    else:
+        _, recvs = _as_tuple(recv)
+        if len(recvs) != len(payloads) or any(
+                r.shape != p.shape or r.dtype != p.dtype or r.device != dev
+                or not r.is_contiguous() for r, p in zip(recvs, payloads)):
+            raise ValueError("recv must hold one contiguous buffer like each "
+                             "payload")
     recv_counts = torch.empty(world, dtype=torch.int32, device=dev)
-    ticket = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = _build.stream_ptr(payloads[0])
+    flags = _signal.flags(dev, "a2a_loopback", plan.items + 2 * world,
+                          stream)
+    # [0] the ticket; from [32] on, a cache line further, the count cells
+    scratch = _signal.arrivals(dev, "a2a_loopback", 32 + world,
+                               stream).data_ptr()
     err = _build.lib().tdt_a2a_loopback(
-        (ctypes.c_void_p * n)(*[p.data_ptr() for p in payloads]),
-        (ctypes.c_void_p * n)(*[r.data_ptr() for r in recvs]),
-        (ctypes.c_longlong * n)(*row_bytes),
-        (ctypes.c_longlong * n)(*piece_rows), n, counts.data_ptr(),
-        cells.data_ptr(), recv_counts.data_ptr(), flags.data_ptr(),
-        ticket.data_ptr(), _signal.next_epoch(dev), world, cap, ch,
-        _build.stream_ptr(payloads[0]))
+        plan.c_pointers(*[p.data_ptr() for p in payloads]),
+        plan.c_pointers(*[r.data_ptr() for r in recvs]),
+        plan.c_row_bytes, plan.c_piece_rows, len(payloads),
+        counts.data_ptr(), scratch + 128, recv_counts.data_ptr(),
+        flags.data_ptr(), scratch, _signal.next_epoch(dev), world, cap, ch,
+        stream)
     _build.check(err, "tdt_a2a_loopback")
     A2A_LOOPBACK.launches += 1
     return (recvs[0] if single else tuple(recvs)), recv_counts

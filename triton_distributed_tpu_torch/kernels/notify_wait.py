@@ -4,10 +4,14 @@ Counterpart of ``tutorials/01-distributed-notify-wait.py``
 (``producer_consumer_kernel`` :58): every rank streams its chunks into its
 right neighbour's 2-slot queue, with a per-slot arrival signal and an
 ack-based flow control, while consuming its left neighbour's stream. Here
-the ranks are the blocks of one cooperative launch of
-``csrc/notify_wait.cu``, the first user of the port's device language layer
-(``csrc/language.cuh``). Rank r's output is rank r - 1's stream, the
-tutorial's own check (:147-148).
+the ranks are blocks of one cooperative launch of ``csrc/notify_wait.cu``
+(several a rank, each running the protocol on one stripe of every chunk,
+producer and consumer warps at once), the first user of the port's device
+language layer (``csrc/language.cuh``). Rank r's output is rank r - 1's
+stream, the tutorial's own check (:147-148). The call allocates only its
+output: the signals are a persistent per-stream buffer that the kernel
+leaves at 0 (``_signal.arrivals``), and the default queue a persistent
+per-(device, stream, shape) buffer.
 """
 
 from __future__ import annotations
@@ -23,6 +27,12 @@ NOTIFY_WAIT = _build.register(
 # The tutorial's shapes (:50-55): 8 ranks, chunks of (4, 128) f32, 4 chunks
 # per rank.
 WORLD, CHUNK_ROWS, N_CHUNKS, COLS = 8, 4, 4, 128
+# Stripes of a chunk, at most (csrc/notify_wait.cu kMaxStripes, kMinStripe):
+# the kernel takes min(MAX_STRIPES, ceil(chunk bytes / MIN_STRIPE), SMs /
+# world), so the signals are sized for the first two.
+MAX_STRIPES, MIN_STRIPE = 16, 2048
+
+_QUEUES: dict[tuple, torch.Tensor] = {}
 
 
 def _n_chunks(x: torch.Tensor, chunk_rows: int) -> int:
@@ -44,9 +54,9 @@ def producer_consumer_cuda(x: torch.Tensor, *, chunk_rows: int = CHUNK_ROWS,
                            queue: torch.Tensor | None = None,
                            producer_delay_ns: int = 0) -> torch.Tensor:
     """Launch ``csrc/notify_wait.cu`` on the current stream: ``x.shape[0]``
-    ranks, one block each, in one cooperative launch (a world too large for
-    the card to hold at once raises). ``queue`` (default: a new buffer of
-    shape (world, 2, chunk_rows, *x.shape[2:]), discarded) and
+    ranks in one cooperative launch (a world too large for the card to hold
+    at once raises). ``queue`` (default: a persistent buffer of shape
+    (world, 2, chunk_rows, *x.shape[2:]) per device, stream and shape) and
     ``producer_delay_ns`` (every odd rank's producer sleeps that long before
     each push) let a test poison the slots and hold the pushes back; the
     result must not change."""
@@ -55,20 +65,26 @@ def producer_consumer_cuda(x: torch.Tensor, *, chunk_rows: int = CHUNK_ROWS,
         raise ValueError("producer_consumer_cuda takes a contiguous CUDA "
                          "tensor")
     world = x.shape[0]
-    chunk_bytes = x[0, :chunk_rows].numel() * x.element_size()
+    chunk_bytes = x.numel() // (world * n_chunks) * x.element_size()
     shape = (world, 2, chunk_rows, *x.shape[2:])
+    stream = _build.stream_ptr(x)
     if queue is None:
-        queue = torch.empty(shape, dtype=x.dtype, device=x.device)
+        key = (x.device, stream, shape, x.dtype)
+        queue = _QUEUES.get(key)
+        if queue is None:
+            queue = _QUEUES[key] = torch.empty(shape, dtype=x.dtype,
+                                               device=x.device)
     elif (tuple(queue.shape) != shape or queue.dtype != x.dtype
           or queue.device != x.device or not queue.is_contiguous()):
         raise ValueError(f"queue must be a contiguous {shape} {x.dtype} "
                          f"tensor on {x.device}")
     out = torch.empty_like(x)
-    signals = _signal.counters(x.device, "notify_wait", 3 * world + 1)
+    stripes = min(MAX_STRIPES, -(-chunk_bytes // MIN_STRIPE))
+    signals = _signal.arrivals(x.device, "notify_wait",
+                               3 * world * stripes + 1, stream)
     err = _build.lib().tdt_notify_wait(
         x.data_ptr(), queue.data_ptr(), out.data_ptr(), signals.data_ptr(),
-        world, n_chunks, chunk_bytes, producer_delay_ns,
-        _build.stream_ptr(x))
+        world, n_chunks, chunk_bytes, producer_delay_ns, stream)
     _build.check(err, "tdt_notify_wait")
     NOTIFY_WAIT.launches += 1
     return out
