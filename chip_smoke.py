@@ -120,7 +120,12 @@ script exits non-zero without its result line:
    and in ar mode (one-shot all-reduce 2 x 64 per forward), each one's
    prefill logits held against the xla golden with phase 3's bars, TTFT,
    decode tokens/s and the peak memory; and the host ``all_reduce`` at
-   bench.py's all-reduce shape (the perf model's pick: two-shot);
+   bench.py's all-reduce shape (the perf model's pick: two-shot). The
+   one-shot all-reduce is timed on its serving path (its staging a
+   persistent scratch) at bench.py's shape and at the ar serve's decode,
+   (8, 8, 5,120), beside ``x.float().sum(0)`` and its bars (device alone
+   <= 0.050 ms, events / library <= 2.0), also 50 calls back to back
+   without an L2 flush between them;
 8. expert-parallel Qwen3-30B-A3B at world 4 on one card (seeded; the ranks
    simulated): the multi-rank EP all-to-all (``csrc/ep_a2a.cu``: bf16
    tokens of 2,048 and int32 expert ids) against its plain version, bit
@@ -173,7 +178,9 @@ script exits non-zero without its result line:
    causal), each held against its plain pipeline and an f32 dense golden
    with phase 3's bars; a smaller non-causal prefill holds the lse; the
    prefill again with 1 ms-delayed producers behind NaN staging; the four
-   kernels' times.
+   kernels' times; the SP prefill's (the wgmma tile of
+   ``csrc/attn_wgmma.cuh``) events / SDPA against its bar (<= 2.0) and its
+   SASS holding HGMMA.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -2573,6 +2580,40 @@ def tp_check_ar(tar, label, x, err):
             f"the same")
 
 
+def oneshot_bars(tar, x, row, gen, card):
+    """The one-shot all-reduce's serving path against its bars: at
+    bench.py's shape the device time alone (<= 0.050 ms) and events /
+    x.float().sum(0) (<= 2.0); the same figures at the ar serve's decode
+    shape, without a bar; and at each, CUDA events over 50 launches back to
+    back with no L2 flush between them (a run of calls' steady state).
+    Prints, does not fail: a missed bar is recorded with its numbers."""
+    w = x.shape[0]
+    cases = (("bench", x, row),
+             ("decode", randn(gen, w, 8, TP_AR[1]), None))
+    for label, xs, r in cases:
+        run = lambda: tar.oneshot_all_reduce(xs, world=w)
+        if not torch.equal(run(), tar.oneshot_all_reduce_ref(xs)):
+            raise AssertionError(f"phase 7: oneshot_ar {label}: not the "
+                                 f"plain version's bits")
+        if r is None:
+            r = dict(ms=Timer("cuda")(run, reps=50),
+                     device_ms=kernel_device_ms(run, "oneshot_ar_kernel"),
+                     library_ms=Timer("cuda")(lambda: xs.float().sum(0),
+                                              reps=50))
+        b2b = busy_device_ms(run, n=50)
+        bar = (f" (bars: device <= 0.050 ms: "
+               f"{'met' if r['device_ms'] <= 0.050 else 'missed'}; events / "
+               f"library <= 2.0: "
+               f"{'met' if r['ms'] / r['library_ms'] <= 2.0 else 'missed'})"
+               if label == "bench" else " (no bar)")
+        say(f"phase 7: oneshot_ar serving path {label} {tuple(xs.shape)} "
+            f"bf16: events {r['ms']:.4f} ms, device alone "
+            f"{r['device_ms']:.4f} ms, 50 back to back without a flush "
+            f"{b2b:.4f} ms a call, library x.float().sum(0) "
+            f"{r['library_ms']:.4f} ms, events / library "
+            f"{r['ms'] / r['library_ms']:.3f}{bar} [{card}]")
+
+
 def phase_tp_kernels(gen, kernels, card):
     """Phase 7 (a): the four multi-rank kernels against their plain
     versions at bench.py's shapes, m = 1 and f32; (c) their times. Returns
@@ -2702,8 +2743,10 @@ def phase_tp_kernels(gen, kernels, card):
     nb = x[0].numel() * x.element_size()
     t_l = timer(lambda: x.float().sum(0), reps=50)
     t_b, by = bound_ms(0, pm.all_reduce_bytes(w, nb))
+    # The one-shot all-reduce is timed on the serving path (its persistent
+    # staging: oneshot_all_reduce), the two-shot on its kernel entry.
     for name, run, ref, kern in (
-            ("oneshot_ar", tar.oneshot_all_reduce_cuda,
+            ("oneshot_ar", lambda x: tar.oneshot_all_reduce(x, world=w),
              tar.oneshot_all_reduce_ref, "oneshot_ar_kernel"),
             ("twoshot_ar", tar.twoshot_all_reduce_cuda,
              tar.twoshot_all_reduce_ref, "twoshot_ar_kernel")):
@@ -2712,6 +2755,7 @@ def phase_tp_kernels(gen, kernels, card):
             device_ms=kernel_device_ms(lambda: run(x), kern),
             plain_ms=timer(lambda: ref(x), reps=10), library_ms=t_l,
             bound_ms=t_b, bound_by=by)
+    oneshot_bars(tar, x, rows["oneshot_ar"], gen, card)
     for name, r in rows.items():
         say(f"phase 7: {name} times: kernel {r['ms']:.4f} ms (device alone "
             f"{r['device_ms']:.4f}), plain {r['plain_ms']:.4f} ms, library "
@@ -2849,6 +2893,8 @@ def phase_tp_slice(Engine, ModelConfig, kernels, card):
         f" GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}"
         f" GiB")
     del dist, xla, ar, logits, x_logits
+    from triton_distributed_tpu_torch.runtime import symm
+    symm.clear_workspaces()  # the ar prefill's 4.7 GB of staging
     free_card()
 
     # The host wrapper at bench.py's all-reduce shape: AUTO picks by the
@@ -3795,7 +3841,7 @@ def phase_sp(gen, kernels, card):
     say(f"phase 10: sp_ag_attention {w} x {SP_M} tokens, {SP_HQ} heads, dh "
         f"{SP_DH}, causal bf16: max abs err {err['sp_ag_attn']:.4g} vs the "
         f"plain version (bar atol = rtol = 2e-2: the kernel rounds P to "
-        f"bf16 for mma.sync, the plain version keeps f32)")
+        f"bf16 for its products, the plain version keeps f32)")
 
     # (c) The lse on a smaller non-causal run; the delayed producers.
     qs, ks, vs = (t[:, :8, :SP_LSE_M].contiguous()
@@ -3935,11 +3981,44 @@ def phase_sp(gen, kernels, card):
         f"(1, {SP_HQ}, {w * SP_M}, {SP_DH}); sp_ag_attn bound: "
         f"{pm.sp_attention_flops(SP_HQ, SP_DH, pairs):.4g} operations (the "
         f"{pairs} causal pairs a head)")
+    r = rows["sp_ag_attn"]
+    flops = pm.sp_attention_flops(SP_HQ, SP_DH, pairs)
+    say(f"phase 10: sp_ag_attn (wgmma tile: 128 query rows, TMA, 128-key "
+        f"chunks) events {r['ms']:.4f} ms, device alone "
+        f"{r['device_ms']:.4f} ms ({flops / r['device_ms'] / 1e9:.1f} "
+        f"TFLOP/s), sdpa is_causal {r['library_ms']:.4f} ms: events / "
+        f"library {r['ms'] / r['library_ms']:.3f} (bar <= 2.0: "
+        f"{'met' if r['ms'] / r['library_ms'] <= 2.0 else 'missed'}), "
+        f"bound {r['bound_ms']:.4f} ms [{card}]")
+    sp_sass_check()
     say(f"phase 10: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB [{card}]")
     del xs, q_dec, k_dec, v_dec, q_pre, k_pre, v_pre, qg, kg, vg, xl, stg
     free_card()
     return {k: launches[k] for k in SP_KERNELS}, err, rows
+
+
+def sp_sass_check() -> None:
+    """The built library's SP kernel for bf16 at head_dim 128 issues
+    Hopper's warpgroup MMA: cuobjdump's SASS of that function holds HGMMA
+    instructions (fails if it holds none; not measured without
+    cuobjdump)."""
+    from triton_distributed_tpu_torch.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        say("phase 10: sp_ag_attn SASS: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.build())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    parts = [p for p in sass.split("Function : ")
+             if p.split("\n", 1)[0].find("sp_ag_attn_wgmma_kernel") >= 0]
+    count = sum(p.count("HGMMA") for p in parts)
+    say(f"phase 10: sp_ag_attn SASS: {count} HGMMA instructions in "
+        f"{len(parts)} function(s) named sp_ag_attn_wgmma_kernel")
+    if not count:
+        raise AssertionError("phase 10: the SP kernel issues no HGMMA")
 
 
 def _local_lens(kv_len: int, m_kv: int) -> torch.Tensor:

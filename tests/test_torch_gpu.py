@@ -1521,3 +1521,175 @@ def test_epoch_wrap_across_the_sp_kernels(cuda):
         assert torch.equal(got, tag.all_gather_ref(x))
         assert torch.equal(sp, want_sp)
     assert _signal._EPOCH[x.device] == 2   # 2**31 - 2, 2**31 - 1, 1, 2
+
+
+# --- the one-shot all-reduce (one push a source) and the SP wgmma tile ----
+
+
+def _cuda_ops(fn) -> list[str]:
+    """The device operations (kernels, memsets, copies) one call of fn
+    makes, by torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 3, 1001), torch.float32), ((3, 7, 2051), torch.bfloat16),
+    ((8, 5, 3277), torch.bfloat16), ((8, 128, 5120), torch.bfloat16),
+    ((3, 2, 4099), torch.float32), ((8, 8, 5120), torch.float32)])
+@pytest.mark.parametrize("delayed", [False, True])
+def test_oneshot_ar_bit_identical_at_ragged_sizes(cuda, shape, dtype,
+                                                 delayed):
+    """Worlds 2, 3 and 8, n neither a whole number of vectors nor of
+    chunks (and more than one chunk): out bit for bit the plain version's,
+    every staging slot what was pushed; with 1 ms-delayed pushes behind NaN
+    staging the same."""
+    world = shape[0]
+    x = _randn(torch.Generator(device=cuda).manual_seed(shape[2]), *shape,
+               dtype=dtype)
+    pushed = torch.stack([torch.stack([x[s] for s in range(world) if s != d])
+                          for d in range(world)])
+    staging = (torch.full_like(pushed, float("nan")) if delayed else None)
+    got, staging = tar.oneshot_all_reduce_cuda(
+        x, staging=staging, producer_delay_ns=1_000_000 if delayed else 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tar.oneshot_all_reduce_ref(x))
+    assert torch.equal(staging, pushed)
+
+
+def test_oneshot_ar_back_to_back_leaves_its_ticket_at_zero(cuda):
+    """100 calls back to back, no host reset and no synchronize between
+    them, alternating shapes, dtypes and the two entry points: every result
+    is the plain version's bits, and the persistent ticket is 0 after."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    xs = [_randn(gen, 8, 128, 5120, dtype=torch.bfloat16),
+          _randn(gen, 8, 8, 5120, dtype=torch.bfloat16),
+          _randn(gen, 3, 7, 2051, dtype=torch.float32)]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = []
+    for i in range(100):
+        x = xs[i % 3]
+        outs.append(tar.oneshot_all_reduce(x, world=x.shape[0]) if i % 2
+                    else tar.oneshot_all_reduce_cuda(x)[0])
+    torch.cuda.synchronize()
+    assert tar.ONESHOT_AR.launches == 100
+    for i, got in enumerate(outs):
+        assert torch.equal(got, tar.oneshot_all_reduce_ref(xs[i % 3]))
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(_signal._ARRIVALS[(xs[0].device, stream, "oneshot_ar")][0]) \
+        == 0
+
+
+def test_oneshot_ar_serving_path_stages_into_persistent_scratch(cuda):
+    """The serving entry point gives the same bits as the kernel on a new
+    staging, its pushes land in the stream's persistent scratch (the same
+    storage call after call, grown for a larger call), and the call makes
+    one device operation: the kernel, no memset, no copy."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = _randn(gen, 8, 128, 5120, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    got = tar.oneshot_all_reduce(x, world=8)
+    want, staged = tar.oneshot_all_reduce_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    st = tar.serving_staging(x, stream)
+    assert torch.equal(st, staged)
+    tar.oneshot_all_reduce(x, world=8)
+    assert tar.serving_staging(x, stream).data_ptr() == st.data_ptr()
+    ops = _cuda_ops(lambda: tar.oneshot_all_reduce(x, world=8))
+    assert len(ops) == 1 and "oneshot_ar_kernel" in ops[0], ops
+    big = _randn(gen, 8, 256, 5120, dtype=torch.bfloat16)
+    assert torch.equal(tar.oneshot_all_reduce(big, world=8),
+                       tar.oneshot_all_reduce_ref(big))
+    assert torch.equal(tar.oneshot_all_reduce(x, world=8), want)
+
+
+def _sp_kernel_names(run) -> str:
+    return " ".join(n for n in _cuda_ops(run) if "sp_ag_attn" in n)
+
+
+@pytest.mark.parametrize("world,m,m_kv", [(3, 200, 77), (8, 200, 77),
+                                          (2, 128, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("offsets", [False, True])
+def test_sp_wgmma_tile_matches_plain(cuda, world, m, m_kv, causal, offsets):
+    """bf16 at head_dim 128 on the wgmma tile against the plain version
+    at 2e-2, the lse at 1e-3: tiles and chunks ragged (m 200, m_kv 77),
+    uneven row and column offsets (rows that see no key: lse -1e30)."""
+    gen = torch.Generator(device=cuda).manual_seed(world * m + m_kv)
+    q = _randn(gen, world, 3, m, 128, dtype=torch.bfloat16)
+    k = _randn(gen, world, 3, m_kv, 128, dtype=torch.bfloat16)
+    v = _randn(gen, world, 3, m_kv, 128, dtype=torch.bfloat16)
+    kw = {}
+    if offsets:
+        kw = dict(row_offset=[-31 + 97 * r for r in range(world)],
+                  col_offset=[5 + 3 * r for r in range(world)])
+    run = lambda: tsp.sp_ag_attention_cuda(q, k, v, causal=causal,
+                                           return_partials=True, **kw)
+    out, lse, _, _ = run()
+    want, want_lse = tsp.sp_ag_attention_ref(q, k, v, causal=causal,
+                                             return_partials=True, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    assert "sp_ag_attn_wgmma_kernel" in _sp_kernel_names(run)
+
+
+def test_sp_wgmma_tile_waits_for_delayed_producers(cuda):
+    """Ragged world-3 tiles with 1 ms-delayed pushes behind NaN staging:
+    the same bits, and every staged K and V is what was pushed."""
+    gen = torch.Generator(device=cuda).manual_seed(43)
+    q = _randn(gen, 3, 2, 200, 128, dtype=torch.bfloat16)
+    k = _randn(gen, 3, 2, 77, 128, dtype=torch.bfloat16)
+    v = _randn(gen, 3, 2, 77, 128, dtype=torch.bfloat16)
+    want, _, _, _ = tsp.sp_ag_attention_cuda(q, k, v)
+    k_full = torch.full((3, 3, 2, 77, 128), float("nan"), dtype=q.dtype,
+                        device=cuda)
+    v_full = torch.full_like(k_full, float("nan"))
+    got, _, _, _ = tsp.sp_ag_attention_cuda(
+        q, k, v, k_full=k_full, v_full=v_full, producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(k_full, k[None].expand(3, *k.shape))
+    assert torch.equal(v_full, v[None].expand(3, *v.shape))
+
+
+@pytest.mark.parametrize("dtype,dh,scale,tile", [
+    (torch.bfloat16, 128, None, "sp_ag_attn_wgmma_kernel"),
+    (torch.bfloat16, 64, None, "sp_ag_attn_kernel"),
+    (torch.float32, 128, None, "sp_ag_attn_kernel"),
+    (torch.bfloat16, 128, -0.05, "sp_ag_attn_kernel")])
+def test_sp_prefill_paths_and_persistent_ticket(cuda, dtype, dh, scale,
+                                                tile):
+    """bf16 at head_dim 128 runs the wgmma kernel; head_dim 64, f32 and a
+    scale that is not positive keep the earlier tiles (all in one launch
+    path, each against the plain version); every call leaves the stream's
+    ticket at 0."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v = (_randn(gen, 4, 2, 150, dh, dtype=dtype) for _ in range(3))
+    run = lambda: tsp.sp_ag_attention_cuda(q, k, v, scale=scale)[0]
+    names = _sp_kernel_names(run)
+    assert tile in names and (tile.endswith("wgmma_kernel")
+                              or "wgmma" not in names), names
+    got = run()
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        got.float(), tsp.sp_ag_attention_ref(q, k, v, scale=scale).float(),
+        atol=tol, rtol=tol)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert int(_signal._ARRIVALS[(q.device, stream, "sp_ag_attn")][0]) == 0

@@ -20,18 +20,33 @@
 //   DMAs, waits on one receive semaphore per source and folds in VMEM row
 //   tiles. Here the ranks are a field of each work item of one persistent
 //   grid (gemm_tile.cuh persistent_blocks) that hands out items by an
-//   atomic ticket: first the producer items, chunk-major (for chunk c, rank
-//   d, then its peers src = d + 1, d + 2, ... mod world: copy x[src]'s chunk
-//   into staging[d]'s slot with language.cuh's putmem_signal, which raises
-//   the slot's flag for that chunk to the call's epoch), then one fold item
-//   per (chunk, rank): one thread waits on the chunk's world - 1 flags, the
-//   block meets at a barrier, and each thread folds 16-byte vectors (eight
-//   bf16 or four f32) in f32 registers in the fixed order above, staged
-//   values loaded through L2 only. A producer never waits and a block takes
-//   a ticket only while it runs, so every flag a fold waits on belongs to a
-//   running block: no deadlock, whatever the dispatch order. delay_ns holds
-//   every producer item back before its copy (a test of the waits: the
-//   result must not change).
+//   atomic ticket. x is cut into chunks of whole 16 KB rounds of the block
+//   (the wrapper's plan: 16 KB at the decode-sized calls, more rounds a
+//   chunk once there would be over 1,024 chunks).
+//   - A push item (chunk c, source src) loads x[src]'s chunk ONCE, every
+//     load of a round in flight before its first store, stores it into
+//     its slot at each of the world - 1 peers, and after the block's
+//     barrier raises the one flag (c, src) with a release (cumulative over
+//     the block's stores) to the call's epoch. x is read once, not world -
+//     1 times.
+//   - A fold item (chunk c, rank d) waits on the world - 1 flags (c, src !=
+//     d) with one lane of warp 0 per flag, in parallel, meets the block at
+//     a barrier, and each thread then loads a vector (eight bf16 or four
+//     f32) of every source, eight sources in flight before the first add,
+//     staged slots through L2 only; the adds run in f32 in rank order, so
+//     the bits are those above.
+//   - The ticket order puts chunk c's folds right behind chunk c + 1's
+//     pushes (pushes of chunk 0, then for each c: pushes of c + 1, folds of
+//     c; kernels/allreduce.py oneshot_ar_items is the same order in
+//     Python), so a fold reads lines its producers wrote moments before,
+//     from L2. Every flag a fold waits on belongs to an item handed out
+//     before it to a running block, and a push never waits: no deadlock,
+//     whatever the dispatch order.
+//   - One device operation a call: the ticket lives in a persistent buffer
+//     (kernels/_signal.py arrivals) that the last block out leaves at 0; no
+//     cudaMemsetAsync before the launch.
+//   delay_ns holds every push back before its copy (a test of the waits:
+//   the result must not change).
 #include "gemm_tile.cuh"
 #include "language.cuh"
 #include "vec.cuh"
@@ -41,6 +56,122 @@ namespace {
 namespace lang = tdt::lang;
 using tdt::vec::Vec;
 constexpr int kThreads = 256;
+constexpr int kRound = 4;  // 16-byte vectors a thread a round: 16 KB
+constexpr int kGroup = 8;  // sources whose loads are in flight at once
+constexpr int kLag = 1;    // chunks of pushes handed out ahead of a fold
+
+struct Item {
+  bool push;
+  int c, r;  // chunk; the source of a push, the rank of a fold
+};
+
+// The item of ticket t (kernels/allreduce.py oneshot_ar_items): the pushes
+// of chunks 0 .. lag - 1, then for each chunk c the pushes of c + lag (while
+// there is one) and the folds of c.
+__device__ __forceinline__ Item item_of(int t, int W, int nc) {
+  const int lag = min(kLag, nc);
+  if (t < lag * W) return {true, t / W, t % W};
+  const int u = t - lag * W, full = (nc - lag) * 2 * W;
+  if (u < full) {
+    const int g = u / (2 * W), v = u % (2 * W);
+    return v < W ? Item{true, g + lag, v} : Item{false, g, v - W};
+  }
+  return {false, nc - lag + (u - full) / W, (u - full) % W};
+}
+
+__device__ __forceinline__ void st_cg(float* p, float v) { __stcg(p, v); }
+__device__ __forceinline__ void st_cg(__nv_bfloat16* p, __nv_bfloat16 v) {
+  __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(v));
+}
+
+// Chunk [e0, e0 + len) of x[src] into its slot at every peer d != src.
+template <typename T, bool VEC>
+__device__ __forceinline__ void push(const T* __restrict__ x, T* staging,
+                                     long long n, long long e0,
+                                     long long len, int src, int W) {
+  const int peers = W - 1;
+  auto slot = [&](int d) {
+    return staging + ((size_t)d * peers + src - (src > d)) * n + e0;
+  };
+  const T* from = x + (size_t)src * n + e0;
+  if constexpr (VEC) {
+    constexpr int P = Vec<T>::N;
+    const uint4* s = reinterpret_cast<const uint4*>(from);
+    const long long n16 = len / P;
+    for (long long i = threadIdx.x; i < n16; i += kRound * kThreads) {
+      uint4 v[kRound];
+#pragma unroll
+      for (int u = 0; u < kRound; ++u)
+        if (i + u * kThreads < n16) v[u] = s[i + u * kThreads];
+      for (int d = 0; d < W; ++d) {
+        if (d == src) continue;
+        uint4* to = reinterpret_cast<uint4*>(slot(d));
+#pragma unroll
+        for (int u = 0; u < kRound; ++u)
+          if (i + u * kThreads < n16) __stcg(to + i + u * kThreads, v[u]);
+      }
+    }
+  } else {
+    for (long long e = threadIdx.x; e < len; e += kThreads) {
+      const T v = from[e];
+      for (int d = 0; d < W; ++d)
+        if (d != src) st_cg(slot(d) + e, v);
+    }
+  }
+}
+
+// out[d][e0, e0 + len) = cast(sum over src in rank order), the own term
+// from x, the others from rank d's slots through L2 only.
+template <typename T, bool VEC>
+__device__ __forceinline__ void fold(const T* __restrict__ x,
+                                     const T* staging, T* __restrict__ out,
+                                     long long n, long long e0,
+                                     long long len, int d, int W) {
+  const int peers = W - 1;
+  auto term = [&](int src) {
+    return src == d ? x + (size_t)d * n + e0
+                    : staging + ((size_t)d * peers + src - (src > d)) * n + e0;
+  };
+  T* to = out + (size_t)d * n + e0;
+  if constexpr (VEC) {
+    constexpr int P = Vec<T>::N;
+    for (long long i = threadIdx.x; i < len / P; i += kThreads) {
+      float acc[P];
+      for (int g0 = 0; g0 < W; g0 += kGroup) {
+        uint4 v[kGroup];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          const int src = g0 + k;
+          if (src < W) {
+            const uint4* p = reinterpret_cast<const uint4*>(term(src)) + i;
+            v[k] = src == d ? *p : __ldcg(p);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (g0 + k < W) {
+            float f[P];
+            Vec<T>::load(v[k], f);
+#pragma unroll
+            for (int e = 0; e < P; ++e)
+              acc[e] = g0 + k == 0 ? f[e] : acc[e] + f[e];
+          }
+        }
+      }
+      tdt::vec::store_vec(to + i * P, acc);
+    }
+  } else {
+    for (long long e = threadIdx.x; e < len; e += kThreads) {
+      float acc = 0.f;
+      for (int src = 0; src < W; ++src) {
+        const float f = src == d ? tdt::to_f32(term(src)[e])
+                                 : tdt::vec::load_cg(term(src) + e);
+        acc = src == 0 ? f : acc + f;
+      }
+      to[e] = tdt::from_f32<T>(acc);
+    }
+  }
+}
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -48,35 +179,33 @@ __global__ void __launch_bounds__(kThreads)
                       T* __restrict__ out, uint32_t* flags, int* ticket,
                       uint32_t epoch, long long n, long long chunk,
                       int n_chunks, int world, unsigned long long delay_ns) {
-  const int peers = world - 1;
-  const int producers = n_chunks * world * peers;
-  const int total = producers + n_chunks * world;
+  const int W = world, total = 2 * n_chunks * W;
   for (;;) {
     const int t = tdt::gemm::take_ticket(ticket);
-    if (t >= total) return;
-    if (t < producers) {  // chunk c of rank src into rank d's slot
-      const int c = t / (world * peers), d = (t / peers) % world;
-      const int src = (d + 1 + t % peers) % world, slot = src - (src > d);
-      const long long e0 = (long long)c * chunk;
-      const long long len = min(chunk, n - e0);
-      lang::sleep_ns(delay_ns);
-      lang::putmem_signal(
-          staging + ((size_t)d * peers + slot) * n + e0,
-          x + (size_t)src * n + e0, len * sizeof(T),
-          flags + ((size_t)d * peers + slot) * n_chunks + c, epoch);
+    if (t >= total) {  // the last block out leaves the ticket at 0
+      if (threadIdx.x == 0 && t == total + (int)gridDim.x - 1) *ticket = 0;
+      return;
+    }
+    const Item it = item_of(t, W, n_chunks);
+    const long long e0 = (long long)it.c * chunk;
+    const long long len = min(chunk, n - e0);
+    uint32_t* chunk_flags = flags + (size_t)it.c * W;  // one per source
+    if (it.push) {
+      if (threadIdx.x == 0) lang::sleep_ns(delay_ns);
+      __syncthreads();
+      push<T, VEC>(x, staging, n, e0, len, it.r, W);
+      __syncthreads();  // every thread's stores precede the release
+      if (threadIdx.x == 0) lang::notify(chunk_flags + it.r, epoch);
       continue;
     }
-    const int u = t - producers, c = u / world, d = u % world;
-    if (threadIdx.x == 0)
-      for (int slot = 0; slot < peers; ++slot)
-        lang::wait(flags + ((size_t)d * peers + slot) * n_chunks + c, epoch);
+    if (threadIdx.x < 32) {  // lane j waits on sources j, j + 32, ...
+      for (int src = threadIdx.x; src < W; src += 32)
+        if (src != it.r) lang::wait(chunk_flags + src, epoch, 0);
+      __syncwarp();
+    }
     __syncthreads();
     lang::consume_token();
-    const long long e0 = (long long)c * chunk;
-    tdt::vec::fold_slots<T, VEC>(x + (size_t)d * n + e0,
-                                 staging + (size_t)d * peers * n + e0, n,
-                                 out + (size_t)d * n + e0, world, d,
-                                 min(chunk, n - e0));
+    fold<T, VEC>(x, staging, out, n, e0, len, it.r, W);
     // take_ticket starts at a barrier: nothing here is read again.
   }
 }
@@ -93,9 +222,8 @@ cudaError_t launch(const void* x, void* staging, void* out, void* flags,
   auto kernel = vec ? oneshot_ar_kernel<T, true>
                     : oneshot_ar_kernel<T, false>;
   unsigned blocks = 0;
-  cudaError_t err = tdt::gemm::persistent_blocks(
-      kernel, kThreads, 0, n_chunks * world * world, &blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ticket, 0, sizeof(int), s);
+  const cudaError_t err = tdt::gemm::persistent_blocks(
+      kernel, kThreads, 0, 2 * n_chunks * world, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(staging), static_cast<T*>(out),
@@ -106,10 +234,10 @@ cudaError_t launch(const void* x, void* staging, void* out, void* flags,
 
 }  // namespace
 
-// x, out (world, n), staging (world, world - 1, n); flags (world x (world -
-// 1) x ceil(n / chunk), uint32, raised to epoch); ticket (one int32 of
-// scratch, zeroed here on the stream); dtype 0 f32, 1 bf16; delay_ns holds
-// every producer item back (0 in use).
+// x, out (world, n), staging (world, world - 1, n); flags (ceil(n / chunk)
+// x world, uint32, raised to epoch: one per (chunk, source)); ticket (one
+// int32, 0 on entry and left at 0 by the kernel); dtype 0 f32, 1 bf16;
+// delay_ns holds every push back (0 in use).
 extern "C" int tdt_oneshot_ar(const void* x, void* staging, void* out,
                               void* flags, void* ticket, unsigned epoch,
                               long long world, long long n, long long chunk,
@@ -118,7 +246,8 @@ extern "C" int tdt_oneshot_ar(const void* x, void* staging, void* out,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (world < 2 || n <= 0 || chunk <= 0 || !staging || world > 4096)
     return cudaErrorInvalidValue;
-  if (((n + chunk - 1) / chunk) * world * world > INT32_MAX)
+  // The ticket counts up to 2 x chunks x world + blocks - 1.
+  if (((n + chunk - 1) / chunk) * world * 4 > INT32_MAX)
     return cudaErrorInvalidValue;
   if (dtype == tdt::kF32)
     return launch<float>(x, staging, out, flags, ticket, epoch, n, chunk,

@@ -26,26 +26,54 @@
 //   ~1.1 GB of q, k, v and out (0.3 ms at 3.35 TB/s).
 //
 // What this design does about it: one persistent grid (gemm_tile.cuh
-//   persistent_blocks), work items handed out by an atomic ticket. The
-//   first world x world x H tickets are producer items: one copies rank
-//   src's K and V of one head into every rank dst's k_full / v_full[src]
-//   (language.cuh putmem_signal, 16-byte moves through L2) and raises the
-//   (dst, src, head) flag to the call's epoch; they go out by the distance
-//   (src - dst) mod world, so every rank's own segment lands first, as the
-//   consumers walk. Then one consumer item per (rank, head, 64-row q tile),
-//   the latest tiles first (the causal diagonal makes them the heaviest).
-//   It walks the segments in JAX's order, skips one whose first global
-//   column lies right of the tile's last row, waits on the segment's flag,
-//   and runs flash_prefill.cuh's tile over the segment's keys up to the
-//   tile's causal frontier: for bf16 at head_dim 64 or 128 the mma.sync
-//   FlashAttention-2 tile (MmaRows: Q fragments and the f32 state in
-//   registers, 64-key chunks double-buffered by cp.async.cg, P in bf16),
-//   else the CUDA-core tile (simt_chunk, f32). The state carries across
-//   segments; the mask compares global rows and columns, so row and column
-//   offsets need no alignment. A producer never waits and every item a
-//   consumer waits on was handed out before it to a running block, so no
-//   wait can deadlock. delay_ns holds every producer item back before its
-//   copy (a test of the waits: the result must not change).
+//   persistent_blocks), work items handed out by an atomic ticket that
+//   lives in a persistent buffer (kernels/_signal.py arrivals) and that the
+//   last block out leaves at 0, so the call makes no memset.
+//
+//   bf16 at head_dim 128 (the path's shape) runs on attn_wgmma.cuh's tile
+//   (given a positive scale, at most 64 ranks and 16-byte aligned
+//   operands, which its softmax, its segment table and TMA take): a block
+//   is two warpgroups of 64 query rows, Q and 128-key chunks of K and V
+//   loaded by TMA through a three-stage ring, S = Q K^T and O += P V on
+//   wgmma, the softmax on S in registers while the previous chunk's P V
+//   runs, the two warpgroups taking turns on the tensor cores.
+//   Its items (sp_ag_attn_items in kernels/sp_attention.py is the same
+//   order in Python):
+//   - a push item (src, head) bulk-copies rank src's K and V of one head
+//     through shared memory into every rank dst's k_full / v_full[src]
+//     (wgmma_tile.cuh bulk_copy: each byte read once, stored world times)
+//     and raises the world flags (dst, src, head) to the call's epoch;
+//   - an attend item (rank r, head h, 128-row q tile) walks rank r's
+//     segments in JAX's order, skipping one whose first global column lies
+//     right of the tile's last row, and streams each one's chunks up to
+//     the tile's causal frontier, after one thread has acquired the flags
+//     of the segments it reads; each row's mask is one bound on a chunk's
+//     keys (the segment's end, or the row's own column when causal).
+//   The tickets go head by head: the pushes of heads 0 and 1, then for
+//   each head h the pushes of head h + 2 (while there is one) and the
+//   attend items of head h, ranks and tiles latest first (the heaviest
+//   under the causal mask) and one (rank, head)'s tiles consecutive, so
+//   its K and V come from device memory about once and from L2 for the
+//   rest; a head's pushes run on a few blocks two heads ahead of its
+//   attend items, hidden behind the items between.
+//
+//   Other dtypes and head dims, and bf16 at 128 outside those conditions,
+//   keep the earlier items on the present tiles, in the same launch path:
+//   push items per (distance, dst, head), copying with every thread
+//   (language.cuh putmem_signal), latest first, and attend items per
+//   (rank, 64-row tile, head) on flash_prefill.cuh's tiles: for bf16 at
+//   head_dim 64 or 128 the mma.sync FlashAttention-2 tile
+//   (MmaRows: Q fragments and the f32 state in registers, 64-key chunks
+//   double-buffered by cp.async.cg, P in bf16), else the CUDA-core tile
+//   (simt_chunk, f32).
+//
+//   Either way the state carries across segments; the mask compares global
+//   rows and columns, so row and column offsets need no alignment. A push
+//   never waits and every item an attend item waits on was handed out
+//   before it to a running block, so no wait can deadlock. delay_ns holds
+//   every push item back before its copy (a test of the waits: the result
+//   must not change).
+#include "attn_wgmma.cuh"
 #include "flash_prefill.cuh"
 #include "gemm_tile.cuh"
 #include "language.cuh"
@@ -53,6 +81,7 @@
 namespace {
 
 namespace lang = tdt::lang;
+namespace wg = tdt::wg;
 using prefill::CK;
 using prefill::MMA_CK;
 using prefill::R;
@@ -89,6 +118,13 @@ __device__ __forceinline__ void load8_cg(const float* p, float* out) {
 __device__ __forceinline__ void load8_cg(const bf16* p, float* out) {
   uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
   tdt::load8(reinterpret_cast<const bf16*>(&u), out);
+}
+
+// A block whose ticket t is past the work: the last one out (every block
+// takes exactly one such ticket) leaves the ticket at 0 for the next call.
+__device__ __forceinline__ void leave_ticket(const Problem& P, int t,
+                                             int total) {
+  if (threadIdx.x == 0 && t == total + (int)gridDim.x - 1) *P.ticket = 0;
 }
 
 // Producer item t: rank src's K and V of head h into rank dst's slot src.
@@ -332,7 +368,10 @@ __global__ void __launch_bounds__(MMA ? prefill::MMA_WARPS * 32
   const int total = producers + W * H * P.n_tiles;
   for (;;) {
     const int t = tdt::gemm::take_ticket(P.ticket);
-    if (t >= total) return;
+    if (t >= total) {
+      leave_ticket(P, t, total);
+      return;
+    }
     if (t < producers) {
       produce<T>(P, t);
       continue;  // take_ticket starts at a barrier
@@ -361,15 +400,262 @@ cudaError_t launch(const Problem& P, cudaStream_t s) {
       (long long)P.world * P.world * P.H + (long long)P.world * P.H * P.n_tiles;
   if (err == cudaSuccess)
     err = tdt::gemm::persistent_blocks(kernel, threads, bytes, work, &blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(P.ticket, 0, sizeof(int), s);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, threads, bytes, s>>>(P);
   return cudaGetLastError();
 }
 
+// --- bf16 at head_dim 128: attn_wgmma.cuh's tile ---------------------------
+
+constexpr int kLookahead = 2;  // heads whose pushes go out ahead
+
+struct WgItem {
+  bool push;
+  int r, h, qt;  // r: the source of a push, the rank of an attend item
+};
+
+// The item of ticket t (sp_ag_attn_items in kernels/sp_attention.py): the
+// pushes of heads 0 .. la - 1, then for each head h the pushes of head h +
+// la (while there is one) and the attend items of head h, ranks and tiles
+// latest first.
+__device__ __forceinline__ WgItem wg_item_of(int t, int W, int H, int nt) {
+  const int la = min(kLookahead, H);
+  if (t < la * W) return {true, t % W, t / W, 0};
+  const int u = t - la * W, group = W + W * nt, full = (H - la) * group;
+  int g, v;
+  if (u < full) {
+    g = u / group;
+    v = u % group;
+    if (v < W) return {true, v, g + la, 0};
+    v -= W;
+  } else {
+    g = H - la + (u - full) / (W * nt);
+    v = (u - full) % (W * nt);
+  }
+  return {false, W - 1 - v / nt, g, nt - 1 - v % nt};
+}
+
+// Push item (src, h), thread 0: rank src's K and V of head h into every
+// rank's k_full / v_full[src], then the world flags (dst, src, h).
+__device__ void push_bulk(const Problem& P, int src, int h,
+                          const tdt::attn::Smem& sm, uint32_t& cit) {
+  const int W = P.world, H = P.H;
+  const size_t seg = (size_t)P.m_kv * P.dh;  // elements of one head's keys
+  const size_t at = ((size_t)src * H + h) * seg;  // dst 0's slot src
+  const size_t stride = (size_t)W * H * seg * sizeof(bf16);
+  lang::sleep_ns(P.delay_ns);
+  wg::bulk_copy(static_cast<bf16*>(P.k_full) + at, stride, W,
+                static_cast<const bf16*>(P.k) + at, seg * sizeof(bf16),
+                sm.base, cit);
+  wg::bulk_copy(static_cast<bf16*>(P.v_full) + at, stride, W,
+                static_cast<const bf16*>(P.v) + at, seg * sizeof(bf16),
+                sm.base, cit);
+  wg::fence_proxy_async();
+  __threadfence();
+  for (int d = 0; d < W; ++d)
+    lang::notify(P.flags + ((size_t)d * W + src) * H + h, P.epoch);
+}
+
+// The chunks of attend item (r, h, qt) in order, for attn_wgmma.cuh's
+// Rows::run: rank r's segments own first, each skipped when right of the
+// tile's last row, else cut into 128-key chunks up to the tile's causal
+// frontier. Chunk j takes ring use u + j.
+struct Chunks {
+  const Problem& P;
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  const tdt::attn::Smem& sm;
+  int r, h, row_hi;
+  uint32_t u;
+  int n;               // chunks in all
+  int grow_a, grow_b;  // this thread's two rows, global
+  int col0;            // the global column of rank r's gathered keys
+  // This thread's cursor: chunk k of segment s, keys [c0, c0 + 128).
+  int k = -1, s = -1, cb = 0, kv_hi = 0, c0 = 0;
+
+  // Segment seg: its source, first global column and the keys the tile
+  // needs (none when right of the tile's last row).
+  __device__ __forceinline__ int segment(int seg, int& src, int& col) const {
+    src = r + seg < P.world ? r + seg : r + seg - P.world;
+    col = col0 + src * P.m_kv;
+    return P.causal ? min(P.m_kv, row_hi - col + 1) : P.m_kv;
+  }
+  // The keys of chunk j (j never decreases) that rows a and b see: below
+  // the segment's end, and at or left of the row when causal.
+  __device__ __forceinline__ void limits(int j, int (&lim)[2]) {
+    while (k < j) {
+      if (k >= 0 && c0 + tdt::attn::BKV < kv_hi) {
+        c0 += tdt::attn::BKV;
+      } else {
+        int src;
+        do {
+          kv_hi = segment(++s, src, cb);
+        } while (kv_hi <= 0);
+        c0 = 0;
+      }
+      ++k;
+    }
+    lim[0] = (P.causal ? min(kv_hi, grow_a - cb + 1) : kv_hi) - c0;
+    lim[1] = (P.causal ? min(kv_hi, grow_b - cb + 1) : kv_hi) - c0;
+  }
+
+  // One thread, before the tile's first load: the table of the segments
+  // the tile reads in shared memory (each one's plane and first chunk, and
+  // the chunk count after the last), each one's flag acquired, then the
+  // async proxy fenced (TMA then reads rows another block staged). The
+  // table is published with the Q barrier's arrival that follows.
+  __device__ __forceinline__ void prepare() const {
+    int segs = 0, total = 0;
+    for (int seg = 0; seg < P.world; ++seg) {
+      int src, col;
+      const int hi = segment(seg, src, col);
+      if (hi <= 0) continue;
+      const int plane = (r * P.world + src) * P.H + h;
+      wg::wait_flag(P.flags + plane, P.epoch);
+      sm.seg_plane[segs] = plane;
+      sm.seg_first[segs++] = total;
+      total += (hi + tdt::attn::BKV - 1) / tdt::attn::BKV;
+    }
+    sm.seg_first[segs] = total;
+    wg::fence_proxy_async();
+  }
+  __device__ __forceinline__ int count() const {
+    int total = 0;
+    for (int seg = 0; seg < P.world; ++seg) {
+      int src, col;
+      const int hi = segment(seg, src, col);
+      if (hi > 0) total += (hi + tdt::attn::BKV - 1) / tdt::attn::BKV;
+    }
+    return total;
+  }
+  // Load chunk j into its stage (one thread), its segment from the table.
+  __device__ __forceinline__ void load(int j) const {
+    int seg = 0;
+    while (j >= sm.seg_first[seg + 1]) ++seg;
+    tdt::attn::load_kv(sm, tk, tv, (u + j) % tdt::attn::STAGES,
+                       sm.seg_plane[seg],
+                       (j - sm.seg_first[seg]) * tdt::attn::BKV);
+  }
+  // The thread that released chunk j's stage last refills it.
+  __device__ __forceinline__ void refill(int j) const {
+    if (j + tdt::attn::STAGES < n) load(j + tdt::attn::STAGES);
+  }
+};
+
+// Attend item (r, h, qt): every thread. u counts the ring uses of this
+// block's chunks so far, tiles its attend items; both advance the same in
+// every thread. Thread 0 acquires the tile's segment flags and loads Q and
+// the first STAGES chunks; later chunks are loaded by the thread that
+// frees their stage (Rows::run).
+__device__ void attend(const Problem& P, const CUtensorMap* tq,
+                       const CUtensorMap* tk, const CUtensorMap* tv,
+                       const tdt::attn::Smem& sm, int r, int h, int qt,
+                       uint32_t& u, uint32_t& tiles) {
+  namespace at = tdt::attn;
+  const int m = P.m, i0 = qt * at::BQ, row0 = P.offs[r];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int w = warp / 4;  // the consumer warpgroup
+  const int la = i0 + 64 * w + 16 * (warp % 4) + lane / 4, lb = la + 8;
+  Chunks ch{P, tk, tv, sm, r, h, row0 + min(i0 + at::BQ, m) - 1, u, 0,
+            row0 + la, row0 + lb, P.offs[P.world + r]};
+  ch.n = ch.count();
+  if (threadIdx.x == 0) {
+    ch.prepare();
+    at::load_q(sm, tq, r * P.H + h, i0);
+    for (int j = 0; j < at::STAGES && j < ch.n; ++j) ch.load(j);
+  }
+  at::Rows st;
+  st.init();
+  wg::mbar_wait(sm.q_bar(), tiles & 1);
+  st.run(sm, w, u, ch.n, P.scale * 1.4426950408889634f, ch);
+  st.finish();
+  bf16* o = static_cast<bf16*>(P.out) + ((size_t)r * P.H + h) * m * at::DH;
+  float* lse = P.lse ? P.lse + ((size_t)r * P.H + h) * m : nullptr;
+  const float ln2 = 0.6931471805599453f;
+  const int tig = lane % 4;
+  if (la < m) {
+    bf16* orow = o + (size_t)la * at::DH + 2 * tig;
+    const float inv = 1.f / st.l_a;
+#pragma unroll
+    for (int j = 0; j < at::DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(st.o[4 * j] * inv, st.o[4 * j + 1] * inv);
+    if (lse && tig == 0)
+      lse[la] =
+          (st.m_a == -INFINITY ? kNegInf : st.m_a * ln2) + logf(st.l_a);
+  }
+  if (lb < m) {
+    bf16* orow = o + (size_t)lb * at::DH + 2 * tig;
+    const float inv = 1.f / st.l_b;
+#pragma unroll
+    for (int j = 0; j < at::DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+          __floats2bfloat162_rn(st.o[4 * j + 2] * inv, st.o[4 * j + 3] * inv);
+    if (lse && tig == 0)
+      lse[lb] =
+          (st.m_b == -INFINITY ? kNegInf : st.m_b * ln2) + logf(st.l_b);
+  }
+  u += ch.n;
+  ++tiles;
+}
+
+__global__ void __launch_bounds__(tdt::attn::THREADS, 1)
+    sp_ag_attn_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            Problem P) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tdt::attn::Smem sm(smem_raw);
+  sm.init();
+  const int W = P.world, H = P.H, nt = P.n_tiles;
+  const int total = W * H + W * H * nt;
+  uint32_t u = 0, tiles = 0, cit = 0;  // chunks, tiles, copy pieces
+  for (;;) {
+    const int t = tdt::gemm::take_ticket(P.ticket);
+    if (t >= total) {
+      leave_ticket(P, t, total);
+      return;
+    }
+    const WgItem it = wg_item_of(t, W, H, nt);
+    if (it.push) {
+      if (threadIdx.x == 0) push_bulk(P, it.r, it.h, sm, cit);
+      continue;  // take_ticket starts at a barrier
+    }
+    attend(P, &tq, &tk, &tv, sm, it.r, it.h, it.qt, u, tiles);
+  }
+}
+
+cudaError_t launch_wgmma(Problem P, cudaStream_t s) {
+  namespace at = tdt::attn;
+  CUtensorMap tq, tk, tv;
+  const long long planes = (long long)P.world * P.world * P.H;
+  if (!at::encode(&tq, P.q, P.m, (long long)P.world * P.H) ||
+      !at::encode(&tk, P.k_full, P.m_kv, planes) ||
+      !at::encode(&tv, P.v_full, P.m_kv, planes))
+    return cudaErrorInvalidValue;
+  P.n_tiles = (P.m + at::BQ - 1) / at::BQ;
+  auto kernel = sp_ag_attn_wgmma_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, at::SMEM_BYTES);
+  unsigned blocks = 0;
+  const long long work = (long long)P.world * P.H * (1 + P.n_tiles);
+  if (err == cudaSuccess)
+    err = tdt::gemm::persistent_blocks(kernel, at::THREADS, at::SMEM_BYTES,
+                                       work, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, at::THREADS, at::SMEM_BYTES, s>>>(tq, tk, tv, P);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch(const Problem& P, cudaStream_t s) {
+  using tdt::gemm::aligned16;
   if constexpr (std::is_same<T, bf16>::value) {
+    if (P.dh == 128 && P.scale > 0.f &&
+        P.world <= tdt::attn::MAX_SEGMENTS && aligned16(P.q) &&
+        aligned16(P.k_full) &&
+        aligned16(P.v_full) && aligned16(P.k) && aligned16(P.v))
+      return launch_wgmma(P, s);
     if (P.dh == 128) return launch<T, 128, true>(P, s);
     if (P.dh == 64) return launch<T, 64, true>(P, s);
   }
@@ -383,8 +669,8 @@ cudaError_t dispatch(const Problem& P, cudaStream_t s) {
 // (world, world, H, m_kv, dh), out (world, H, m, dh), lse (world, H, m) f32
 // or null; offs (2, world) int32: each rank's first global row, and the
 // global column of its gathered keys' first; flags (world x world x H,
-// uint32, raised to epoch); ticket (one int32 of scratch, zeroed here on
-// the stream); causal 0/1; dtype 0 f32, 1 bf16; delay_ns holds every
+// uint32, raised to epoch); ticket (one int32, 0 on entry and left at 0 by
+// the kernel); causal 0/1; dtype 0 f32, 1 bf16; delay_ns holds every
 // producer item back (0 in use).
 extern "C" int tdt_sp_ag_attn(const void* q, const void* k, const void* v,
                               void* k_full, void* v_full, void* out,

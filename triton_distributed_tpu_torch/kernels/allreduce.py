@@ -29,6 +29,7 @@ import enum
 import torch
 
 from triton_distributed_tpu_torch.kernels import _build, _signal
+from triton_distributed_tpu_torch.runtime import symm
 
 ONESHOT_AR_LOOPBACK = _build.register(
     "oneshot_ar_loopback",
@@ -104,6 +105,76 @@ def oneshot_all_reduce_ref(x: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype).expand(x.shape).clone()
 
 
+# The one-shot kernel's chunks: whole rounds of its block (256 threads x
+# four 16-byte vectors), one round a chunk until there would be more than
+# MAX_CHUNKS of them, then as many rounds a chunk as keep them at MAX_CHUNKS.
+ONESHOT_ROUND_BYTES = 16384
+
+
+def oneshot_ar_plan(n: int, itemsize: int) -> tuple[int, int]:
+    """``(chunk, n_chunks)`` of ``csrc/oneshot_ar.cu`` over n elements a
+    rank: a chunk is a whole number of 16 KB rounds (so a multiple of every
+    vector width), one round unless that gives more than MAX_CHUNKS
+    chunks; the chunks cover [0, n) once, the last one ragged."""
+    rounds = max(1, -(-n * itemsize // (ONESHOT_ROUND_BYTES * MAX_CHUNKS)))
+    chunk = rounds * ONESHOT_ROUND_BYTES // itemsize
+    return chunk, -(-n // chunk)
+
+
+def oneshot_ar_items(world: int, n_chunks: int,
+                     lag: int = 1) -> list[tuple[str, int, int]]:
+    """The kernel's work items in ticket order (``item_of`` in
+    ``csrc/oneshot_ar.cu``): ``("push", c, src)`` copies chunk c of
+    x[src] into every peer's slot and raises flag (c, src); ``("fold", c,
+    d)`` waits on the flags (c, src != d) and folds rank d's chunk c. The
+    pushes of chunks 0 .. lag - 1 first, then for each chunk c the pushes
+    of c + lag (while there is one) and the folds of c."""
+    lag = min(lag, n_chunks)
+    items = [("push", c, s) for c in range(lag) for s in range(world)]
+    for c in range(n_chunks):
+        if c + lag < n_chunks:
+            items += [("push", c + lag, s) for s in range(world)]
+        items += [("fold", c, d) for d in range(world)]
+    return items
+
+
+_ONESHOT_PLANS: dict[tuple, tuple[int, int, int]] = {}
+
+
+def _oneshot_launch(x: torch.Tensor, staging: torch.Tensor, out: torch.Tensor,
+                    stream: int, delay_ns: int) -> None:
+    """One launch of ``csrc/oneshot_ar.cu``: the plan of this shape (chunk,
+    chunks, flags) cached, the flags and the self-resetting ticket from
+    the stream's persistent signal buffers, no memset."""
+    key = (x.shape, x.dtype)
+    plan = _ONESHOT_PLANS.get(key)
+    if plan is None:
+        n = x[0].numel()
+        chunk, n_chunks = oneshot_ar_plan(n, x.element_size())
+        plan = _ONESHOT_PLANS[key] = (n, chunk, x.shape[0] * n_chunks)
+    n, chunk, n_flags = plan
+    dev = x.device
+    err = _build.lib().tdt_oneshot_ar(
+        x.data_ptr(), staging.data_ptr(), out.data_ptr(),
+        _signal.flags(dev, "oneshot_ar", n_flags, stream).data_ptr(),
+        _signal.arrivals(dev, "oneshot_ar", 1, stream).data_ptr(),
+        _signal.next_epoch(dev), x.shape[0], n, chunk,
+        _build.dtype_code(x), delay_ns, stream)
+    _build.check(err, "tdt_oneshot_ar")
+    ONESHOT_AR.launches += 1
+
+
+def _check_oneshot(x: torch.Tensor) -> None:
+    world = x.shape[0]
+    _stacked("oneshot_all_reduce_cuda", x, world)
+    if world < 2 or not x.is_cuda:
+        raise ValueError("oneshot_all_reduce_cuda takes a CUDA tensor of "
+                         "world >= 2 contributions")
+    _build.dtype_code(x)
+    if not x.is_contiguous():
+        raise ValueError("oneshot_all_reduce_cuda takes a contiguous x")
+
+
 def oneshot_all_reduce_cuda(x: torch.Tensor, *, staging=None,
                             producer_delay_ns: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -111,17 +182,11 @@ def oneshot_all_reduce_cuda(x: torch.Tensor, *, staging=None,
     m, ...) f32 or bf16, contiguous. Returns ``(out, staging)``, staging
     (world, world - 1, m, ...) holding every pushed buffer
     (``staging[d][peer_slot(src, d)] = x[src]``). ``staging`` (default: a
-    new buffer) and ``producer_delay_ns`` (every producer item sleeps that
+    new buffer) and ``producer_delay_ns`` (every push item sleeps that
     long before its copy) let a test poison the slots and hold the pushes
     back; the result must not change."""
+    _check_oneshot(x)
     world = x.shape[0]
-    _stacked("oneshot_all_reduce_cuda", x, world)
-    if world < 2 or not x.is_cuda:
-        raise ValueError("oneshot_all_reduce_cuda takes a CUDA tensor of "
-                         "world >= 2 contributions")
-    code = _build.dtype_code(x)
-    if not x.is_contiguous():
-        raise ValueError("oneshot_all_reduce_cuda takes a contiguous x")
     shape = (world, world - 1, *x.shape[1:])
     if staging is None:
         staging = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -129,20 +194,26 @@ def oneshot_all_reduce_cuda(x: torch.Tensor, *, staging=None,
           or staging.device != x.device or not staging.is_contiguous()):
         raise ValueError(f"staging must be a contiguous {shape} {x.dtype} "
                          f"tensor on {x.device}")
-    n = x[0].numel()
-    chunk = _chunk(n, n // x.shape[1], x.element_size())
-    n_chunks = -(-n // chunk)
-    flags = _signal.flags(x.device, "oneshot_ar",
-                          world * (world - 1) * n_chunks)
-    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
     out = torch.empty_like(x)
-    err = _build.lib().tdt_oneshot_ar(
-        x.data_ptr(), staging.data_ptr(), out.data_ptr(), flags.data_ptr(),
-        ticket.data_ptr(), _signal.next_epoch(x.device), world, n, chunk,
-        code, producer_delay_ns, _build.stream_ptr(x))
-    _build.check(err, "tdt_oneshot_ar")
-    ONESHOT_AR.launches += 1
+    _oneshot_launch(x, staging, out, _build.stream_ptr(x), producer_delay_ns)
     return out, staging
+
+
+def serving_staging(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The serving path's staging for ``x`` (world, m, ...): a view of the
+    stream's persistent scratch (``runtime/symm.py`` ``get_scratch``, grown
+    to the largest call), so a call allocates none; its contents are the
+    last call's pushes. The view is kept per shape on the scratch itself
+    (``views``), so it dies with it."""
+    world = x.shape[0]
+    per = (world - 1) * x[0].numel()
+    ws = symm.get_scratch("oneshot_ar.staging", per, x.dtype, world=world,
+                          device=x.device, stream=stream)
+    view = ws.views.get(x.shape)
+    if view is None:
+        view = ws.views[x.shape] = ws.array.view(-1)[:world * per].view(
+            world, world - 1, *x.shape[1:])
+    return view
 
 
 def oneshot_all_reduce(x_local: torch.Tensor, *,
@@ -151,14 +222,20 @@ def oneshot_all_reduce(x_local: torch.Tensor, *,
     1 ``x_local`` (m, ...) is returned as is (JAX :115). At world > 1
     ``x_local`` is every rank's contribution stacked, (world, m, ...), and
     the result every rank's copy of the sum, (world, m, ...): the kernel on
-    a CUDA tensor, the plain version on a CPU one."""
+    a CUDA tensor (its pushes into the persistent ``serving_staging``, so
+    the call's one device operation is the launch), the plain version on a
+    CPU one."""
     _check_world(world)
     if world == 1:
         return x_local
     _stacked("oneshot_all_reduce", x_local, world)
-    if x_local.is_cuda:
-        return oneshot_all_reduce_cuda(x_local)[0]
-    return oneshot_all_reduce_ref(x_local)
+    if not x_local.is_cuda:
+        return oneshot_all_reduce_ref(x_local)
+    _check_oneshot(x_local)
+    stream = _build.stream_ptr(x_local)
+    out = torch.empty_like(x_local)
+    _oneshot_launch(x_local, serving_staging(x_local, stream), out, stream, 0)
+    return out
 
 
 def _twoshot_rows(x: torch.Tensor, world: int) -> int:

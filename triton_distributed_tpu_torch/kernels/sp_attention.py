@@ -615,6 +615,34 @@ def sp_ag_attention_ref(q, k, v, *, causal: bool = True,
     return (out, lse) if return_partials else out
 
 
+# Query rows of a tile of the wgmma kernel (bf16 at head_dim 128), and the
+# heads whose pushes it hands out ahead of their attend items.
+SP_WGMMA_ROWS = 128
+SP_PUSH_LOOKAHEAD = 2
+
+
+def sp_ag_attn_items(world: int, H: int, m: int,
+                     lookahead: int = SP_PUSH_LOOKAHEAD) -> list[tuple]:
+    """The wgmma kernel's work items in ticket order (``wg_item_of`` in
+    ``csrc/sp_ag_attn.cu``): ``("push", src, h)`` copies rank src's K and
+    V of head h into every rank's staging and raises the flags (dst, src,
+    h) for every dst; ``("attend", r, h, qt)`` is rank r's 128-row q tile
+    qt of head h, which waits on the flags (r, src, h) of the segments it
+    reads. The pushes of heads 0 .. lookahead - 1 first, then for each head
+    h the pushes of head h + lookahead (while there is one) and h's attend
+    items, ranks and tiles latest first, one (rank, head)'s tiles in a
+    row."""
+    n_tiles = -(-m // SP_WGMMA_ROWS)
+    la = min(lookahead, H)
+    items = [("push", s, h) for h in range(la) for s in range(world)]
+    for h in range(H):
+        if h + la < H:
+            items += [("push", s, h + la) for s in range(world)]
+        items += [("attend", r, h, qt) for r in reversed(range(world))
+                  for qt in reversed(range(n_tiles))]
+    return items
+
+
 def sp_ag_attention_cuda(q, k, v, *, causal: bool = True,
                          scale: float | None = None, row_offset=None,
                          col_offset=None, return_partials: bool = False,
@@ -622,7 +650,9 @@ def sp_ag_attention_cuda(q, k, v, *, causal: bool = True,
                          producer_delay_ns: int = 0):
     """Launch ``csrc/sp_ag_attn.cu`` on the current stream: q (world, H, m,
     dh), k/v (world, H, m_kv, dh), contiguous, f32 or bf16, dh a multiple
-    of 8 up to 128. Returns (out (world, H, m, dh), lse (world, H, m) f32
+    of 8 up to 128 (bf16 at 128 on the wgmma tile, in the item order of
+    ``sp_ag_attn_items``; the ticket is the stream's persistent one, left
+    at 0 by the kernel). Returns (out (world, H, m, dh), lse (world, H, m) f32
     or None, k_full, v_full): the staging (world, world, H, m_kv, dh), rank
     dst's gathered K and V at [dst] (default: new buffers). ``k_full``,
     ``v_full`` and ``producer_delay_ns`` (every producer item sleeps that
@@ -660,15 +690,17 @@ def sp_ag_attention_cuda(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     lse = (torch.empty((world, H, m), dtype=torch.float32, device=q.device)
            if return_partials else None)
-    flags = _signal.flags(q.device, SP_AG_ATTN.name, world * world * H)
-    ticket = torch.empty(1, dtype=torch.int32, device=q.device)
+    stream = _build.stream_ptr(q)
+    flags = _signal.flags(q.device, SP_AG_ATTN.name, world * world * H,
+                          stream)
+    ticket = _signal.arrivals(q.device, SP_AG_ATTN.name, 1, stream)
     err = _build.lib().tdt_sp_ag_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), stages[0].data_ptr(),
         stages[1].data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), offs.data_ptr(),
         flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(q.device),
         world, H, m, m_kv, dh, int(causal), float(scale), code,
-        producer_delay_ns, _build.stream_ptr(q))
+        producer_delay_ns, stream)
     _build.check(err, "tdt_sp_ag_attn")
     SP_AG_ATTN.launches += 1
     return out, lse, stages[0], stages[1]
