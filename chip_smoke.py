@@ -13,7 +13,10 @@ script exits non-zero without its result line:
    the paged kernel at Qwen3-1.7B geometry for a decode and a ragged mixed
    step over bf16, int8 and fp8 pools (shuffled tables, a dead slot, NaN
    in every block no live table reaches), each live slot held at 1% (decode)
-   or 2% (mixed) of its own max |output|; the attention kernels again at
+   or 2% (mixed) of its own max |output|, each pool's mixed step run by its
+   tensor-core kernel (the one prefill launch in a call's captured CUDA
+   graph, and torch.profiler's records; the int8/fp8 kernel's SASS holding
+   HMMA); the attention kernels again at
    Qwen3-30B-A3B's GQA group of 8 (32 query heads, 4 kv heads); the grouped
    GEMM at Qwen3-30B-A3B's expert shapes (gate_up 2,048 -> 1,536, down 768
    -> 2,048) at the capacities phase 3c serves (16, 2,048 and 8,192) and
@@ -63,7 +66,8 @@ script exits non-zero without its result line:
 4. times of each kernel, its plain version and one PyTorch call computing
    the same function (CUDA events, L2 flushed before each launch), beside
    the least time the card could take for the same work; the grouped GEMM
-   at the three capacities phase 3c serves;
+   at the three capacities phase 3c serves; the paged kernel's decode and
+   mixed steps also by device time alone (torch.profiler) beside SDPA's;
 5. the one-chip overlap path at bench.py's Qwen3-32B TP=8 per-rank shapes
    (bf16, seeded): the AG-GEMM loopback (A (4,096 x 5,120), B (5,120 x
    3,200), 8 segments; the first work items of one persistent kernel
@@ -169,7 +173,8 @@ script exits non-zero without its result line:
    version at the TP = 8 activations (8, 1,024, 5,120) and (8, 16, 5,120),
    also with 1 ms-delayed producers behind a NaN output; the LL allgather
    (``csrc/ll_allgather.cu``) over five epochs and a restart on one
-   NaN-poisoned staging, bit for bit, the other parity untouched; then the
+   NaN-poisoned staging, bit for bit, the other parity untouched, and 100
+   calls back to back after which its ticket and flags are 0; then the
    path with exact launch counts: the host ``all_gather`` (AUTO),
    ``AllGatherLayer`` at the decode activation with each method,
    ``SpGQAFlashDecodeAttention`` (B 4 over a 32,768-position cache, kv_len
@@ -178,9 +183,10 @@ script exits non-zero without its result line:
    causal), each held against its plain pipeline and an f32 dense golden
    with phase 3's bars; a smaller non-causal prefill holds the lse; the
    prefill again with 1 ms-delayed producers behind NaN staging; the four
-   kernels' times; the SP prefill's (the wgmma tile of
-   ``csrc/attn_wgmma.cuh``) events / SDPA against its bar (<= 2.0) and its
-   SASS holding HGMMA.
+   kernels' times (the LL call also back to back, and one device operation,
+   its kernel, in a call's captured CUDA graph); the SP prefill's (the
+   wgmma tile of ``csrc/attn_wgmma.cuh``) events / SDPA against its bar
+   (<= 2.0) and its SASS holding HGMMA.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. No card, or no package beside the script,
@@ -189,6 +195,7 @@ means a non-zero exit and no result.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import gc
 import json
@@ -366,6 +373,7 @@ SP_B, SP_CTX = 4, 32768
 SP_KV_LENS = (30000, 20000)
 SP_LL_STEPS = 3
 SP_LL_EPOCHS = (0, 1, 2, 3, 4, 0)       # five epochs, then a restart
+LL_B2B_CALLS = 100
 SP_M = 4096
 SP_GOLDEN_HEADS = (0, 37)
 SP_LSE_M = 512
@@ -592,6 +600,113 @@ def check_paged(label, tpa, c, name, geo):
     return check_slots(label, got, want, live, PAGED_SLOT_TOL[name])
 
 
+def device_ops(fn, name: str = "", n: int = 10) -> list[str]:
+    """Names of the device operations (kernels, memsets, copies) whose name
+    holds ``name`` that n calls of fn make, by torch.profiler, after a
+    warm-up call. The profiler may still drop records, some or all of a
+    session's, so a session that recorded none is run again, at most three
+    times in all, and a caller checks what was recorded (each operation one
+    it expects, no more than the n calls can make), not an exact count:
+    ``captured_ops`` counts exactly."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ops = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and name in ev.name]
+        if ops:
+            break
+    return ops
+
+
+# CUgraphNodeType values (cuda.h) that name a device operation.
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _kernel_node_name(cu, node) -> str:
+    """The kernel's (mangled) name of a captured kernel node, by libcuda's
+    cuFuncGetName (CUDA 12.3 and later); '?' where libcuda cannot say."""
+    par = _KernelNodeParams()
+    if cu.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(par)):
+        return "?"
+    func = ctypes.c_void_p(par.func)
+    if not par.func and par.kern:
+        if cu.cuKernelGetFunction(ctypes.byref(func),
+                                  ctypes.c_void_p(par.kern)):
+            return "?"
+    name = ctypes.c_char_p()
+    if not func.value or cu.cuFuncGetName(ctypes.byref(name), func):
+        return "?"
+    return name.value.decode()
+
+
+def captured_ops(fn) -> list[str]:
+    """The device operations one call of fn enqueues, exactly: the call is
+    captured into a CUDA graph (relaxed mode, on a side stream that ran fn
+    once first, so its per-stream buffers exist) and never replayed; one
+    entry a node, "kernel <name>", "memcpy", "memset" or "node type <n>"
+    for any other node. Unlike torch.profiler's records, none is lost."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    raw = ctypes.c_void_p(side.cuda_stream)
+    graph = ctypes.c_void_p()
+    if cu.cuStreamBeginCapture_v2(raw, 2):  # CU_STREAM_CAPTURE_MODE_RELAXED
+        raise RuntimeError("cuStreamBeginCapture failed")
+    try:
+        with torch.cuda.stream(side):
+            fn()
+    finally:
+        err = cu.cuStreamEndCapture(raw, ctypes.byref(graph))
+    if err:
+        raise RuntimeError(f"cuStreamEndCapture failed: CUresult {err}")
+    try:
+        n = ctypes.c_size_t(0)
+        if cu.cuGraphGetNodes(graph, None, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * max(n.value, 1))()
+        if cu.cuGraphGetNodes(graph, nodes, ctypes.byref(n)):
+            raise RuntimeError("cuGraphGetNodes failed")
+        ops = []
+        for node in nodes[:n.value]:
+            kind = ctypes.c_int(-1)
+            if cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)):
+                raise RuntimeError("cuGraphNodeGetType failed")
+            label = GRAPH_NODE_KINDS.get(kind.value,
+                                         f"node type {kind.value}")
+            if kind.value == 0:
+                label += " " + _kernel_node_name(cu, ctypes.c_void_p(node))
+            ops.append(label)
+        return ops
+    finally:
+        cu.cuGraphDestroy(graph)
+
+
+# The tensor-core kernel of each pool's mixed step (bf16 q at head_dim 128).
+MIXED_KERNEL = {None: "flash_prefill_mma_kernel",
+                "int8": "flash_prefill_mma_q8_kernel",
+                "fp8": "flash_prefill_mma_q8_kernel"}
+
+
 def phase_paged_kernel(gen, tpa, quantize):
     err, inputs = 0.0, {}
     for name, geo in PAGED_CASES.items():
@@ -601,6 +716,24 @@ def phase_paged_kernel(gen, tpa, quantize):
                                    name, geo)
             err = max(err, e)
             inputs[(name, kv)] = c
+            if geo["L"] > 1:
+                run = lambda: tpa.paged_attention(**c)
+                cap = [op for op in captured_ops(run)
+                       if "flash_prefill" in op]
+                ran = device_ops(run, "flash_prefill")
+                if (len(cap) != 1 or MIXED_KERNEL[kv] not in cap[0]
+                        or len(ran) > 10
+                        or any(MIXED_KERNEL[kv] not in op for op in ran)):
+                    raise AssertionError(
+                        f"phase 1: a {kv or 'bf16'} mixed step enqueued the "
+                        f"prefill kernels {cap} (captured graph), 10 ran "
+                        f"{ran} (torch.profiler), not one "
+                        f"{MIXED_KERNEL[kv]} each")
+                say(f"phase 1: paged_attention {name} {kv or 'bf16'} pool "
+                    f"runs {MIXED_KERNEL[kv]} (one launch in its captured "
+                    f"graph; torch.profiler recorded {len(ran)} of 10)")
+                if kv == "int8":
+                    sass_count("phase 1", MIXED_KERNEL[kv], "HMMA")
             say(f"phase 1: paged_attention {name} L={geo['L']} kv_lens "
                 f"{geo['kv_lens']} q_lens {geo['q_lens']} dead "
                 f"{list(geo['dead'])}, {kv or 'bf16'} pool, bf16 q: "
@@ -1669,6 +1802,17 @@ def paged_times(inputs, tpa, sp_gather, card):
                      f"kernel / sdpa {t_k / t_l:.3f} (device alone "
                      f"{t_d / t_ld:.3f}); per-layer paged_attention_slots on "
                      f"prebuilt slots {t_s:.4f} ms, / sdpa {t_s / t_l:.3f}")
+            lib_extra = f" (device alone {t_ld:.4f})"
+        else:
+            # The mixed step's prefill kernel (MIXED_KERNEL) alone, and
+            # SDPA's kernels alone.
+            t_d = kernel_device_ms(lambda: tpa.paged_attention(**c),
+                                   "flash_prefill")
+            t_ld = call_device_ms(lambda: F.scaled_dot_product_attention(
+                qt, views[0], views[1], attn_mask=mask, enable_gqa=True))
+            extra = (f" (device alone {t_d:.4f}, {MIXED_KERNEL[kv]}), "
+                     f"kernel / sdpa {t_k / t_l:.3f} (device alone "
+                     f"{t_d / t_ld:.3f})")
             lib_extra = f" (device alone {t_ld:.4f})"
         say(f"phase 4: paged_attention {name} L={L} {kv or 'bf16'} pool: "
             f"kernel {t_k:.4f} ms{extra}, plain {t_p:.4f} ms, sdpa on the "
@@ -3613,7 +3757,8 @@ def sp_check_ll(tll, gen, err):
     for bit the plain version, writing only its parity's half (the other
     keeps what the call before left, NaN at first); the third call with
     1 ms-delayed pushes behind a NaN output; the flags back at 0 after
-    every call."""
+    every call; then 100 calls back to back, the ticket and flags 0
+    after."""
     from triton_distributed_tpu_torch.kernels import _signal
     from triton_distributed_tpu_torch.kernels.sp_attention import (
         decode_partial_feat)
@@ -3644,12 +3789,38 @@ def sp_check_ll(tll, gen, err):
             raise AssertionError(f"phase 10: ll_allgather epoch {epoch} "
                                  f"(call {i}): not the plain version's bits, "
                                  f"or the other parity or the flags moved")
+    # 100 calls back to back, no host reset and no synchronize between
+    # them, the epoch alternately an int and a 0-d tensor advanced on the
+    # card: every result the plain version's bits, the persistent ticket
+    # and the flags 0 after.
+    xs = [randn(gen, w, rows, feat, dtype=torch.float32) for _ in range(2)]
+    epoch_t = torch.zeros((), dtype=torch.int32, device="cuda")
+    outs = []
+    for i in range(LL_B2B_CALLS):
+        outs.append(tll.ll_all_gather_cuda(xs[i % 2], staging,
+                                           epoch_t if i % 2 else i)[0])
+        epoch_t.add_(1)
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream().cuda_stream
+    ticket = int(_signal._ARRIVALS[(x.device, stream, tll.LL_AG.name)][0])
+    flags = int(_signal.flags(x.device, tll.LL_AG.name, 1).abs().sum())
+    for i, got in enumerate(outs):
+        want, mirror = tll.ll_all_gather_ref(xs[i % 2], mirror, i)
+        if not torch.equal(got, want):
+            raise AssertionError(f"phase 10: ll_allgather back-to-back call "
+                                 f"{i}: not the plain version's bits")
+    if not (torch.equal(staging, mirror) and ticket == 0 and flags == 0):
+        raise AssertionError(f"phase 10: ll_allgather after {LL_B2B_CALLS} "
+                             f"back-to-back calls: staging differs, or "
+                             f"ticket {ticket} / flags {flags} not 0")
     err["ll_allgather"] = 0.0
     say(f"phase 10: ll_allgather ({w}, {rows}, {feat}) f32, staging "
         f"{tuple(staging.shape)} NaN-poisoned: epochs {list(SP_LL_EPOCHS)} "
         f"(a restart at 0 after 4) each bit-identical to the plain version, "
         f"the other parity untouched, the flags at 0 after every call; the "
-        f"third call with 1 ms-delayed pushes behind a NaN output: the same")
+        f"third call with 1 ms-delayed pushes behind a NaN output: the same; "
+        f"{LL_B2B_CALLS} calls back to back (int and device epochs): each "
+        f"bit-identical, the ticket and the flags 0 after")
 
 
 def sp_decode_golden(q, k, v, kv_len):
@@ -3911,13 +4082,30 @@ def phase_sp(gen, kernels, card):
     nb_l = xl[0].numel() * xl.element_size()
     t_b, by = bound_ms(0, pm.all_gather_bytes(w, nb_l))
     run_ll = lambda: tll.ll_all_gather_cuda(xl, stg, epoch)
+    lib_ll = lambda: xl.reshape(1, -1, feat).expand(w, -1, -1).contiguous()
     rows["ll_allgather"] = dict(
         ms=timer(run_ll, reps=20),
         device_ms=kernel_device_ms(run_ll, "ll_allgather_kernel"),
         plain_ms=timer(lambda: tll.ll_all_gather_ref(xl, stg, 0), reps=10),
-        library_ms=timer(lambda: xl.reshape(1, -1, feat).expand(
-            w, -1, -1).contiguous(), reps=20),
-        bound_ms=t_b, bound_by=by)
+        library_ms=timer(lib_ll, reps=20), bound_ms=t_b, bound_by=by)
+    cap = captured_ops(run_ll)
+    ops = device_ops(run_ll)
+    if (len(cap) != 1 or "ll_allgather_kernel" not in cap[0]
+            or len(ops) > 10
+            or any("ll_allgather_kernel" not in op for op in ops)):
+        raise AssertionError(f"phase 10: an ll_allgather call enqueued "
+                             f"{cap} (captured graph), 10 made {ops} "
+                             f"(torch.profiler), not one launch each")
+    r = rows["ll_allgather"]
+    say(f"phase 10: ll_allgather ({w}, {SP_B * SP_HQ}, {feat}) f32: events "
+        f"{r['ms']:.4f} ms, device alone {r['device_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms (device alone "
+        f"{call_device_ms(lib_ll):.4f}): events / library "
+        f"{r['ms'] / r['library_ms']:.3f}; back to back over 200 calls "
+        f"{b2b_ms(run_ll):.4f} ms a call, library {b2b_ms(lib_ll):.4f}; "
+        f"device operations of one call (its captured CUDA graph): "
+        f"{len(cap)}, the kernel; of 10 calls recorded by torch.profiler: "
+        f"{len(ops)}, each the kernel [{card}]")
     # The SP decode's one flash_decode launch over every rank's shard (the
     # split-KV kernel redesigned in this slice), at kv_len SP_KV_LENS[0].
     lens = _local_lens(SP_KV_LENS[0], m_kv)[:, None].expand(
@@ -3990,7 +4178,7 @@ def phase_sp(gen, kernels, card):
         f"library {r['ms'] / r['library_ms']:.3f} (bar <= 2.0: "
         f"{'met' if r['ms'] / r['library_ms'] <= 2.0 else 'missed'}), "
         f"bound {r['bound_ms']:.4f} ms [{card}]")
-    sp_sass_check()
+    sass_count("phase 10", "sp_ag_attn_wgmma_kernel", "HGMMA")
     say(f"phase 10: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB [{card}]")
     del xs, q_dec, k_dec, v_dec, q_pre, k_pre, v_pre, qg, kg, vg, xl, stg
@@ -3998,27 +4186,31 @@ def phase_sp(gen, kernels, card):
     return {k: launches[k] for k in SP_KERNELS}, err, rows
 
 
-def sp_sass_check() -> None:
-    """The built library's SP kernel for bf16 at head_dim 128 issues
-    Hopper's warpgroup MMA: cuobjdump's SASS of that function holds HGMMA
-    instructions (fails if it holds none; not measured without
-    cuobjdump)."""
+_SASS: list[str] = []
+
+
+def sass_count(phase: str, kernel: str, instr: str) -> None:
+    """The built library's functions whose name holds ``kernel`` issue
+    ``instr`` (a SASS opcode): cuobjdump's SASS of them holds it (fails if
+    it holds none; not measured without cuobjdump). The disassembly is
+    made once a run."""
     from triton_distributed_tpu_torch.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
-        say("phase 10: sp_ag_attn SASS: not measured (no cuobjdump)")
+        say(f"{phase}: {kernel} SASS: not measured (no cuobjdump)")
         return
-    sass = subprocess.run([tool, "-sass", str(_build.build())],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    parts = [p for p in sass.split("Function : ")
-             if p.split("\n", 1)[0].find("sp_ag_attn_wgmma_kernel") >= 0]
-    count = sum(p.count("HGMMA") for p in parts)
-    say(f"phase 10: sp_ag_attn SASS: {count} HGMMA instructions in "
-        f"{len(parts)} function(s) named sp_ag_attn_wgmma_kernel")
+    if not _SASS:
+        _SASS.append(subprocess.run(
+            [tool, "-sass", str(_build.build())], capture_output=True,
+            text=True, timeout=300, check=True).stdout)
+    parts = [p for p in _SASS[0].split("Function : ")
+             if p.split("\n", 1)[0].find(kernel) >= 0]
+    count = sum(p.count(instr) for p in parts)
+    say(f"{phase}: {kernel} SASS: {count} {instr} instructions in "
+        f"{len(parts)} function(s)")
     if not count:
-        raise AssertionError("phase 10: the SP kernel issues no HGMMA")
+        raise AssertionError(f"{phase}: {kernel} issues no {instr}")
 
 
 def _local_lens(kv_len: int, m_kv: int) -> torch.Tensor:

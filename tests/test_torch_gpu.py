@@ -1528,17 +1528,23 @@ def test_epoch_wrap_across_the_sp_kernels(cuda):
 
 def _cuda_ops(fn) -> list[str]:
     """The device operations (kernels, memsets, copies) one call of fn
-    makes, by torch.profiler, after a warm-up call."""
+    makes, by torch.profiler, after a warm-up call. A session that
+    recorded no device operation at all (seen late in a long run of
+    sessions) is run again, at most three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [ev.name for ev in prof.events()
-            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -1693,3 +1699,142 @@ def test_sp_prefill_paths_and_persistent_ticket(cuda, dtype, dh, scale,
         atol=tol, rtol=tol)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     assert int(_signal._ARRIVALS[(q.device, stream, "sp_ag_attn")][0]) == 0
+
+
+# --- the int8/fp8 mixed step on the tensor cores, the LL allgather's host
+# path ------------------------------------------------------------------------
+
+
+def _q8_geo(g: int, dh: int) -> dict:
+    """A mixed step over a quantized pool: rows straddling 16-row pages, a
+    1-row and a 0-row slot, a slot of two query tiles at g 1, a dead slot
+    (its stale table names live blocks), keys over several 64-key chunks."""
+    Hkv = 1 if g == 8 else 2
+    return dict(B=6, L=70, Hq=Hkv * g, Hkv=Hkv, dh=dh, bs=16, max_blocks=24,
+                kv_lens=[70, 201, 37, 50, 333, 90],
+                q_lens=[70, 45, 1, 0, 3, 17], dead=(5,))
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_quantized_mixed_step_on_the_tensor_cores(cuda, kv, dh, g):
+    """bf16 q over an int8 / fp8 pool at head_dim 64 and 128 runs one
+    launch of the tensor-core kernel (its name by torch.profiler, the only
+    device operation of the call) and matches paged_attention_ref on the
+    live slots; NaN scales of unreached blocks stay out, padding rows are
+    zeros."""
+    geo = _q8_geo(g, dh)
+    dead = geo["dead"]
+    c = _paged_case(11 + g + dh, dtype=torch.bfloat16, kv=kv, **geo)
+    run = lambda: tpa.paged_attention_slots(
+        c["q"], c["k_pool"], c["v_pool"], slots, k_scale=c["k_scale"],
+        v_scale=c["v_scale"])
+    slots = tpa.paged_slots(c["block_tables"], c["kv_lens"], geo["L"],
+                            q_lens=c["q_lens"], slot_mask=c["slot_mask"])
+    _build.reset_counts()
+    got = tpa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_ATTENTION.launches == 1
+    want = tpa.paged_attention_ref(**_cpu(c)).to(cuda)
+    live = [b for b in range(geo["B"]) if b not in dead]
+    assert torch.isfinite(got[live]).all()
+    for b in live:
+        assert (got[b, geo["q_lens"][b]:] == 0).all()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got[live], want[live], atol=tol, rtol=tol)
+    assert torch.equal(run()[live], got[live])   # dead slots: garbage
+    ops = _cuda_ops(run)
+    assert len(ops) == 1 and "flash_prefill_mma_q8_kernel" in ops[0], ops
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_mixed_step_converts_every_wire_value_exactly(cuda, kv):
+    """Query row 0 of a slot attends its key 0 alone, so its output is V's
+    row 0 dequantized and rounded to bf16 once. With scales of 1 and every
+    wire value in those rows (all 256 int8 values; every finite e4m3 byte,
+    subnormals included), the output equals float(wire) bit for bit."""
+    if kv == "int8":
+        wire = torch.arange(-128, 128, dtype=torch.int8)
+    else:
+        raw = torch.arange(256, dtype=torch.int32)
+        raw = torch.where((raw & 0x7F) == 0x7F, 0, raw)   # the two NaNs
+        wire = raw.to(torch.uint8).view(torch.float8_e4m3fn)
+    B, dh, bs = 4, 64, 16
+    gen = torch.Generator().manual_seed(5)
+    k = torch.randint(-100, 100, (B + 1, bs, 1, dh), generator=gen)
+    v = torch.randint(-100, 100, (B + 1, bs, 1, dh), generator=gen)
+    if kv == "int8":
+        k, v = k.to(torch.int8), v.to(torch.int8)
+    else:
+        k = (k.float() / 8).to(torch.float8_e4m3fn)
+        v = (v.float() / 8).to(torch.float8_e4m3fn)
+    v[1:, 0, 0] = wire.reshape(B, dh)   # block b + 1 holds slot b's keys
+    ones = torch.ones((B + 1, bs, 1))
+    c = dict(q=torch.randn(B, 2, 1, dh, generator=gen).to(cuda,
+                                                          torch.bfloat16),
+             k_pool=k.to(cuda), v_pool=v.to(cuda),
+             block_tables=torch.arange(1, B + 1, dtype=torch.int32,
+                                       device=cuda)[:, None],
+             kv_lens=torch.full((B,), 2, dtype=torch.int32, device=cuda),
+             k_scale=ones.to(cuda), v_scale=ones.to(cuda))
+    got = tpa.paged_attention(**c)
+    torch.cuda.synchronize()
+    assert torch.equal(got[:, 0, 0].float().cpu(),
+                       wire.float().reshape(B, dh))
+    want = tpa.paged_attention_ref(**_cpu(c)).to(cuda)
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+
+
+def test_ll_allgather_back_to_back_leaves_its_signals_at_zero(cuda):
+    """100 calls back to back on one stream, no host reset and no
+    synchronize between them, alternating shapes and dtypes, the epoch an
+    int or a 0-d tensor advanced on the card, one call with 1 ms-delayed
+    pushes behind a NaN-poisoned output: every result is the plain
+    version's bits, the staging what the plain version leaves, and the
+    ticket cell and every flag are 0 after. A call makes one device
+    operation, the launch."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    xs = [_randn(gen, 8, 256, 256, dtype=torch.float32),
+          _randn(gen, 3, 7, 2051, dtype=torch.bfloat16),
+          _randn(gen, 2, 5, 33, dtype=torch.float32)]
+    stagings = [torch.full((x.shape[0], 2, x.shape[0] - 1, *x.shape[1:]),
+                           float("nan"), dtype=x.dtype, device=cuda)
+                for x in xs]
+    mirrors = [s.clone() for s in stagings]
+    epoch_t = torch.zeros((), dtype=torch.int32, device=cuda)
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = []
+    for i in range(100):
+        j = i % 3
+        delayed = i == 50
+        out = (torch.full((xs[j].shape[0], xs[j].shape[0] * xs[j].shape[1],
+                           *xs[j].shape[2:]), float("nan"),
+                          dtype=xs[j].dtype, device=cuda)
+               if delayed else None)
+        epoch = epoch_t if i % 2 else i
+        got, st = tll.ll_all_gather_cuda(
+            xs[j], stagings[j], epoch, out=out,
+            producer_delay_ns=1_000_000 if delayed else 0)
+        assert st is stagings[j]
+        outs.append(got)
+        epoch_t.add_(1)
+    torch.cuda.synchronize()
+    assert tll.LL_AG.launches == 100
+    for i, got in enumerate(outs):
+        j = i % 3
+        want, mirrors[j] = tll.ll_all_gather_ref(xs[j], mirrors[j], i)
+        assert torch.equal(got, want), i
+    for st, mirror in zip(stagings, mirrors):
+        assert torch.equal(st.isnan(), mirror.isnan())
+        assert torch.equal(st.nan_to_num(), mirror.nan_to_num())
+    dev = xs[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(_signal._ARRIVALS[(dev, stream, tll.LL_AG.name)][0]) == 0
+    assert int(_signal.flags(dev, tll.LL_AG.name, 1).abs().sum()) == 0
+    ops = _cuda_ops(lambda: tll.ll_all_gather_cuda(xs[0], stagings[0],
+                                                   epoch_t))
+    assert len(ops) == 1 and "ll_allgather_kernel" in ops[0], ops

@@ -103,6 +103,14 @@ CASES = {
     "fp8_mixed_g4_bs4": (dict(B=3, L=8, Hq=8, Hkv=2, dh=16, bs=4,
                               max_blocks=8, kv_lens=[8, 25, 6],
                               q_lens=[8, 1, 6], dead=(1,), kv="fp8"), 4),
+    # The head dims and a GQA group of the tensor-core path over a
+    # quantized pool (bf16 q at head_dim 64 / 128 on the card).
+    "int8_mixed_g2_dh64": (dict(B=3, L=8, Hq=4, Hkv=2, dh=64, bs=16,
+                                max_blocks=4, kv_lens=[8, 37, 20],
+                                q_lens=[8, 1, 5], kv="int8"), None),
+    "fp8_mixed_g2_dh128": (dict(B=3, L=8, Hq=4, Hkv=2, dh=128, bs=4,
+                                max_blocks=8, kv_lens=[8, 29, 11],
+                                q_lens=[8, 3, 0], dead=(2,), kv="fp8"), 4),
 }
 
 

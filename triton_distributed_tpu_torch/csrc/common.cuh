@@ -82,6 +82,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
+// 4-byte asynchronous global -> shared copy (through L1); src_bytes 0
+// fills the 4 bytes with zeros and reads nothing.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
 // Wait until at most one committed group is still in flight.
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
@@ -137,6 +146,51 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
+}
+
+// Four 1-byte KV wire values (one 32-bit word, element 0 in its low byte)
+// as two bf16x2 words (elements 0, 1 in lo; 2, 3 in hi), exactly: every
+// int8 and every finite e4m3 value is a bf16 value, so nothing rounds. Only
+// byte permutes, logic, f32 adds and bf16x2 multiplies, which issue at the
+// full or half FMA rate; cvt runs at a sixteenth of it on this card, and a
+// tensor-core tile converts every K and V element it reads.
+//   int8: with its sign bit flipped the byte is x + 128, the low byte of
+//   the f32 2^23 + x + 128; subtracting 2^23 + 128 leaves x, whose upper
+//   16 bits are its bf16 (|x| <= 128 has at most 8 significant bits).
+//   e4m3: the byte's exponent and mantissa bits moved 4 places down inside
+//   a bf16, the sign kept, are the value times 2^-120, subnormals included
+//   (both formats' subnormals carry the same mantissa bits); one bf16x2
+//   multiply by 2^120 restores the value, which is normal in bf16. The fn
+//   format's NaN bytes (0x7f, 0xff) come out as +-480 (a pool holds
+//   quantizer output: a NaN row carries a NaN scale, which the caller
+//   multiplies in).
+__device__ __forceinline__ void wire4_to_bf16x2(int8_t, uint32_t w,
+                                                uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+           8388736.f;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+__device__ __forceinline__ void wire4_to_bf16x2(__nv_fp8_e4m3, uint32_t w,
+                                                uint32_t& lo, uint32_t& hi) {
+  // Each element's byte in the high byte of a 16-bit lane.
+  const uint32_t a = __byte_perm(w, 0u, 0x1404);  // elements 0, 1
+  const uint32_t b = __byte_perm(w, 0u, 0x3424);  // elements 2, 3
+  const uint32_t ra = (a & 0x80008000u) | ((a & 0x7F007F00u) >> 4);
+  const uint32_t rb = (b & 0x80008000u) | ((b & 0x7F007F00u) >> 4);
+  const __nv_bfloat162 bias =
+      __halves2bfloat162(__ushort_as_bfloat16((unsigned short)0x7B80),
+                         __ushort_as_bfloat16((unsigned short)0x7B80));
+  __nv_bfloat162 x = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&ra),
+                             bias);
+  __nv_bfloat162 y = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&rb),
+                             bias);
+  lo = *reinterpret_cast<uint32_t*>(&x);
+  hi = *reinterpret_cast<uint32_t*>(&y);
 }
 
 }  // namespace tdt

@@ -40,15 +40,20 @@
 //     (slot, kv head) gave 64, and the longest slot no longer sets the time
 //     alone.
 //   - L > 1 takes flash_prefill.cuh (one block per (slot, kv head, 64-row
-//     query tile), bf16 on mma.sync at head_dim 64/128, everything else on
-//     the CUDA cores in f32), one table load per key row.
+//     query tile)). bf16 q at head_dim 64/128 runs on mma.sync over every
+//     pool: a bf16 pool's rows go to shared memory as they are; an int8 /
+//     fp8 pool's wire bytes (half the bytes) and f32 scales are staged by
+//     cp.async, one table load per key, converted to bf16 exactly once a
+//     block, and the scales applied outside the products (to S's key
+//     columns and to P's before its bf16 rounding). fp32 q and other
+//     head_dims take the CUDA-core kernel in f32, int8/fp8 rows
+//     dequantized as float(wire) * scale right after the load.
 //   Both load only rows below each tile's causal frontier min(kv_len,
 //   kv_len - q_len + last live row + 1): table entries past it (allocator
 //   padding that may name a live sequence's block) are never followed,
-//   rows not loaded are zeros or masked by a select, and a fully masked
-//   row adds nothing to its denominator. int8/fp8 rows are dequantized as
-//   float(wire) * scale right after the load and accumulate in f32 exactly
-//   like the unquantized build. The prefill half has no wgmma or TMA yet.
+//   rows not loaded are zeros (with zero scales) or masked by a select,
+//   and a fully masked row adds nothing to its denominator. The prefill
+//   half has no wgmma or TMA yet.
 #include "flash_decode.cuh"
 #include "flash_prefill.cuh"
 

@@ -134,9 +134,12 @@ SIGNATURES = {
     # x, out, world, shard bytes, piece bytes, producer delay (ns), stream
     "tdt_a2a_ag": [P, P, I64, I64, I64, U64, P],
     # x, staging, out, flags, ticket, epoch (nullable int32 on the card),
-    # epoch value, world, shard bytes, piece bytes, producer delay (ns),
-    # stream
-    "tdt_ll_allgather": [P, P, P, P, P, P, I64, I64, I64, I64, U64, P],
+    # epoch value, world, shard bytes, piece bytes, pieces a shard, blocks
+    # (tdt_ll_allgather_blocks), producer delay (ns), stream
+    "tdt_ll_allgather": [P, P, P, P, P, P, I64, I64, I64, I64, I64, I64, U64,
+                         P],
+    # world, pieces a shard, out: the persistent grid's block count (uint32)
+    "tdt_ll_allgather_blocks": [I64, I64, P],
     # q, k, v, k_full, v_full, out, lse (nullable), offsets ((2, world)
     # int32: row, col), flags, ticket, epoch, world, H, m, m_kv, dh,
     # causal, scale, dtype, producer delay (ns), stream

@@ -21,9 +21,17 @@ that the kernel reads there, so a captured graph can advance it without
 the host. No flag of an earlier call can satisfy a wait of a later one,
 whatever the caller does with the epoch: every consumer item resets the
 flag it waited on after its copy, so every call ends with its flags at 0.
+
+A call allocates only the output it returns and makes one device
+operation, the launch: the launch geometry is a plan cached per stacked
+shape, dtype and device (``ll_plan``), and the flags and the ticket are
+persistent per-stream buffers (``_signal``) that the kernel leaves at 0.
 """
 
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -68,6 +76,49 @@ def ll_all_gather_ref(x: torch.Tensor, staging: torch.Tensor, epoch):
     return all_gather_ref(x), staging
 
 
+@dataclasses.dataclass(frozen=True)
+class LLPlan:
+    """The launch geometry of ``ll_all_gather_cuda`` for one stacked shape
+    and dtype on one device: the output's and the staging's shapes, the
+    bytes and pieces of a shard, the persistent grid's block count, and the
+    flags a call raises and lowers."""
+
+    out_shape: tuple
+    staging_shape: tuple
+    seg: int
+    n_pieces: int
+    blocks: int
+    n_flags: int
+
+
+_LL_PLANS: dict[tuple, LLPlan] = {}
+
+
+def ll_plan(x: torch.Tensor) -> LLPlan:
+    """The cached plan of a call on ``x`` (world, m, ...) (made on first
+    use: the checks of the shape and one occupancy query)."""
+    key = (x.shape, x.dtype, x.device)
+    plan = _LL_PLANS.get(key)
+    if plan is None:
+        world = x.shape[0]
+        _stacked("ll_all_gather_cuda", x, world)
+        if world < 2 or not x.is_cuda:
+            raise ValueError("ll_all_gather_cuda takes a CUDA tensor of "
+                             "world >= 2 shards")
+        seg = x[0].numel() * x.element_size()
+        n_pieces = -(-seg // PIECE_BYTES)
+        blocks = ctypes.c_uint(0)
+        with torch.cuda.device(x.device):
+            _build.check(_build.lib().tdt_ll_allgather_blocks(
+                world, n_pieces, ctypes.byref(blocks)),
+                "tdt_ll_allgather_blocks")
+        plan = LLPlan((world, world * x.shape[1], *x.shape[2:]),
+                      (world, 2, world - 1, *x.shape[1:]), seg, n_pieces,
+                      blocks.value, world * 2 * (world - 1) * n_pieces)
+        _LL_PLANS[key] = plan
+    return plan
+
+
 def ll_all_gather_cuda(x: torch.Tensor, staging: torch.Tensor, epoch, *,
                        out=None, producer_delay_ns: int = 0):
     """Launch ``csrc/ll_allgather.cu`` on the current stream: ``x`` (world,
@@ -77,39 +128,38 @@ def ll_all_gather_cuda(x: torch.Tensor, staging: torch.Tensor, epoch, *,
     ``out`` (default: a new buffer) and ``producer_delay_ns`` (every push
     sleeps that long) let a test poison the output and hold the pushes
     back; the result must not change."""
-    world = x.shape[0]
-    _stacked("ll_all_gather_cuda", x, world)
-    if world < 2 or not x.is_cuda or not x.is_contiguous():
-        raise ValueError("ll_all_gather_cuda takes a contiguous CUDA tensor "
-                         "of world >= 2 shards")
-    _check_staging("ll_all_gather_cuda", x, staging)
-    if not staging.is_contiguous():
-        raise ValueError("ll_all_gather_cuda: staging must be contiguous")
+    plan = ll_plan(x)
+    dev = x.device
+    if not x.is_contiguous():
+        raise ValueError("ll_all_gather_cuda takes a contiguous x")
+    if (staging.shape != plan.staging_shape or staging.dtype != x.dtype
+            or staging.device != dev or not staging.is_contiguous()):
+        raise ValueError(f"ll_all_gather_cuda: staging must be a contiguous "
+                         f"{plan.staging_shape} {x.dtype} tensor on {dev} "
+                         f"(make_ll_staging), got {tuple(staging.shape)} "
+                         f"{staging.dtype} on {staging.device}")
     epoch_ptr, epoch_val = None, 0
     if isinstance(epoch, torch.Tensor):
         if (epoch.numel() != 1 or epoch.dtype != torch.int32
-                or epoch.device != x.device):
+                or epoch.device != dev):
             raise ValueError(f"ll_all_gather_cuda: a tensor epoch must be "
-                             f"one int32 on {x.device}")
+                             f"one int32 on {dev}")
         epoch_ptr = epoch.data_ptr()
     else:
         epoch_val = int(epoch)
-    shape = (world, world * x.shape[1], *x.shape[2:])
     if out is None:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    elif (tuple(out.shape) != shape or out.dtype != x.dtype
-          or out.device != x.device or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous {shape} {x.dtype} "
-                         f"tensor on {x.device}")
-    seg = x[0].numel() * x.element_size()
-    n_pieces = -(-seg // PIECE_BYTES)
-    flags = _signal.flags(x.device, LL_AG.name,
-                          world * 2 * (world - 1) * n_pieces)
-    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+        out = torch.empty(plan.out_shape, dtype=x.dtype, device=dev)
+    elif (out.shape != plan.out_shape or out.dtype != x.dtype
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {plan.out_shape} "
+                         f"{x.dtype} tensor on {dev}")
+    stream = _build.stream_ptr(x)
+    flags = _signal.flags(dev, LL_AG.name, plan.n_flags, stream)
+    ticket = _signal.arrivals(dev, LL_AG.name, 1, stream)
     err = _build.lib().tdt_ll_allgather(
         x.data_ptr(), staging.data_ptr(), out.data_ptr(), flags.data_ptr(),
-        ticket.data_ptr(), epoch_ptr, epoch_val, world, seg, PIECE_BYTES,
-        producer_delay_ns, _build.stream_ptr(x))
+        ticket.data_ptr(), epoch_ptr, epoch_val, x.shape[0], plan.seg,
+        PIECE_BYTES, plan.n_pieces, plan.blocks, producer_delay_ns, stream)
     _build.check(err, "tdt_ll_allgather")
     LL_AG.launches += 1
     return out, staging
