@@ -16,7 +16,9 @@ script exits non-zero without its result line:
    or 2% (mixed) of its own max |output|, each pool's mixed step run by its
    tensor-core kernel (the one prefill launch in a call's captured CUDA
    graph, and torch.profiler's records; the int8/fp8 kernel's SASS holding
-   HMMA); the attention kernels again at
+   HMMA); the dense prefill at bf16 head_dim 128 on its wgmma kernel (one
+   device operation a call in its captured CUDA graph, HGMMA in its SASS);
+   the attention kernels again at
    Qwen3-30B-A3B's GQA group of 8 (32 query heads, 4 kv heads); the grouped
    GEMM at Qwen3-30B-A3B's expert shapes (gate_up 2,048 -> 1,536, down 768
    -> 2,048) at the capacities phase 3c serves (16, 2,048 and 8,192) and
@@ -68,6 +70,8 @@ script exits non-zero without its result line:
    the least time the card could take for the same work; the grouped GEMM
    at the three capacities phase 3c serves; the paged kernel's decode and
    mixed steps also by device time alone (torch.profiler) beside SDPA's;
+   the flash prefill also by device time alone, and again at the GQA-8
+   shape, each beside SDPA's and its bar (events / SDPA <= 2.0);
 5. the one-chip overlap path at bench.py's Qwen3-32B TP=8 per-rank shapes
    (bf16, seeded): the AG-GEMM loopback (A (4,096 x 5,120), B (5,120 x
    3,200), 8 segments; the first work items of one persistent kernel
@@ -84,7 +88,10 @@ script exits non-zero without its result line:
    in place on ``c``. The path (the bench arms at the auto split and at
    the JAX package's 640-column split, GEMM-RS, the fused step) runs once
    with the counts reset, each count exact. Then the times: each kernel,
-   its plain version, the library call and the bound; the loopback at a
+   its plain version, the library call and the bound (the loopback also by
+   device time alone beside ``torch.matmul``'s, and its bar, events <= 2.0x
+   ``torch.matmul``; one device operation a call for it and its bare twin,
+   HGMMA in their wgmma tile's SASS); the loopback at a
    sweep of ``overlap_cols`` (the auto rule's evidence); and bench.py's
    decomposition under its own names;
 6. the collectives on one card (seeded): the one-shot all-reduce loopback
@@ -494,6 +501,9 @@ def phase_kernels(gen, tg, tsp):
     inputs["flash_prefill"] = (q, k, v)
     say(f"phase 1: flash_prefill B={B} L={L0} Hq={HQ} Hkv={HKV} dh={DH} "
         f"S={S} offset 0, NaN tail bf16 max_abs_err={e:.4g}")
+    one_wgmma_op("phase 1: flash_prefill", PREFILL_WGMMA,
+                 lambda: tsp.flash_prefill(q, k, v, offset=0))
+    sass_count("phase 1", PREFILL_WGMMA, "HGMMA")
 
     off = VARLEN["offset"]
     lens = torch.tensor(VARLEN["seq_lens"], dtype=torch.int32, device="cuda")
@@ -701,6 +711,21 @@ def captured_ops(fn) -> list[str]:
         cu.cuGraphDestroy(graph)
 
 
+def one_wgmma_op(label: str, kernel: str, fn) -> None:
+    """One call of fn is one device operation, a launch of ``kernel``
+    (its captured CUDA graph: no memset, no copy, no other kernel)."""
+    ops = captured_ops(fn)
+    if len(ops) != 1 or kernel not in ops[0]:
+        raise AssertionError(f"{label}: a call enqueued {ops}, not one "
+                             f"{kernel}")
+    say(f"{label}: one device operation a call, {kernel} (its captured "
+        f"CUDA graph)")
+
+
+# The wgmma kernels of the dense flash prefill (bf16 at head_dim 128) and
+# of the AG-GEMM loopback's tiles at phase 5's shapes.
+PREFILL_WGMMA = "flash_prefill_wgmma_kernel"
+LOOPBACK_WGMMA = "ag_loopback_kernel_wgmma"
 # The tensor-core kernel of each pool's mixed step (bf16 q at head_dim 128).
 MIXED_KERNEL = {None: "flash_prefill_mma_kernel",
                 "int8": "flash_prefill_mma_q8_kernel",
@@ -760,6 +785,8 @@ def phase_gqa8(gen, tsp, tpa):
     say(f"phase 1: flash_prefill GQA 8: B=2 L={L0} Hq={Hq} Hkv={Hkv} "
         f"dh={DH} S={S}, NaN tail, bf16 max_abs_err="
         f"{err['flash_prefill']:.4g}")
+    one_wgmma_op("phase 1: flash_prefill GQA 8", PREFILL_WGMMA,
+                 lambda: tsp.flash_prefill(q, k, v, offset=0))
     del q, k, v, out
     qd = randn(gen, B, Hq, DH)
     kd, vd = randn(gen, B, S, Hkv, DH), randn(gen, B, S, Hkv, DH)
@@ -1700,8 +1727,18 @@ def phase_times(inputs, tg, tsp, card):
     t_b, by = bound_ms(4 * DH * pairs, nbytes)
     rows["flash_prefill"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                  bound_ms=t_b, bound_by=by)
-    say(f"phase 4: flash_prefill B={B} L={L0} S={S}: kernel {t_k:.4f} ms, "
-        f"plain {t_p:.4f} ms, sdpa {t_l:.4f} ms, bound {t_b:.4f} ms ({by})")
+    t_d = kernel_device_ms(lambda: tsp.flash_prefill(q, k, v, offset=0),
+                           PREFILL_WGMMA)
+    t_ld = call_device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    say(f"phase 4: flash_prefill B={B} L={L0} S={S}: kernel {t_k:.4f} ms "
+        f"(device alone {t_d:.4f}, {4 * DH * pairs / t_d / 1e9:.1f} "
+        f"TFLOP/s), plain {t_p:.4f} ms, sdpa {t_l:.4f} ms (device alone "
+        f"{t_ld:.4f}), kernel / sdpa {t_k / t_l:.3f} (bar <= 2.0: "
+        f"{'met' if t_k / t_l <= 2.0 else 'missed'}), bound {t_b:.4f} ms "
+        f"({by}) [{card}]")
+    del qt, kt, vt
+    prefill_gqa8_times(timer, tsp, card)
 
     qd, kd, vd, kv_len = inputs["flash_decode"]
     t_k = timer(lambda: tsp.flash_decode_local(qd, kd, vd, kv_len=kv_len,
@@ -1731,6 +1768,39 @@ def phase_times(inputs, tg, tsp, card):
         f"{t_ld:.4f}), kernel / sdpa {t_k / t_l:.3f} (device alone "
         f"{t_d / t_ld:.3f}), bound {t_b:.4f} ms ({by}) [{card}]")
     return rows
+
+
+def prefill_gqa8_times(timer, tsp, card) -> None:
+    """Phase 4 for the flash prefill at Qwen3-30B-A3B's heads (phase 1's
+    GQA-8 shape: B 2 x 2,048, 32 / 4 heads, a NaN tail past L): events
+    and device time beside SDPA's (``is_causal``, ``enable_gqa``), and the
+    bar (events / SDPA <= 2.0)."""
+    import torch.nn.functional as F
+
+    Hq, Hkv = GQA8["Hq"], GQA8["Hkv"]
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = randn(gen, 2, L0, Hq, DH)
+    k, v = randn(gen, 2, S, Hkv, DH), randn(gen, 2, S, Hkv, DH)
+    k[:, L0:] = float("nan")
+    v[:, L0:] = float("nan")
+    run = lambda: tsp.flash_prefill(q, k, v, offset=0)
+    qt = q.transpose(1, 2).contiguous()
+    kt = k[:, :L0].transpose(1, 2).contiguous()
+    vt = v[:, :L0].transpose(1, 2).contiguous()
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+    t_k, t_l = timer(run, reps=5), timer(lib, reps=5)
+    t_d = kernel_device_ms(run, PREFILL_WGMMA)
+    t_ld = call_device_ms(lib)
+    flops = 4 * DH * 2 * Hq * L0 * (L0 + 1) / 2
+    t_b, by = bound_ms(flops, 2 * (2 * 2 * L0 * Hq * DH
+                                   + 2 * 2 * L0 * Hkv * DH))
+    say(f"phase 4: flash_prefill GQA 8 B=2 L={L0} Hq={Hq} Hkv={Hkv}: kernel "
+        f"{t_k:.4f} ms (device alone {t_d:.4f}, {flops / t_d / 1e9:.1f} "
+        f"TFLOP/s), sdpa {t_l:.4f} ms (device alone {t_ld:.4f}), kernel / "
+        f"sdpa {t_k / t_l:.3f} (bar <= 2.0: "
+        f"{'met' if t_k / t_l <= 2.0 else 'missed'}), bound {t_b:.4f} ms "
+        f"({by}) [{card}]")
 
 
 def paged_times(inputs, tpa, sp_gather, card):
@@ -2021,9 +2091,23 @@ def phase_overlap(gen, tg, trs, kernels, card):
                                       + AG_M * AG_N))
     rows["ag_gemm_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                     bound_ms=t_b, bound_by=by)
+    staged = lambda: tg.ag_gemm_loopback_cuda(a, b, segments=SEGMENTS,
+                                              cols=AG_N)
+    bare = lambda: tg.ag_gemm_segmented_bare_cuda(a, b, segments=SEGMENTS,
+                                                  cols=AG_N)
+    t_d = kernel_device_ms(staged, LOOPBACK_WGMMA)
+    t_bd = kernel_device_ms(bare, LOOPBACK_WGMMA)
+    t_ld = call_device_ms(lambda: torch.matmul(a, b))
     say(f"phase 5: ag_gemm_loopback over all {AG_N} columns, staging "
-        f"included: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"torch.matmul {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+        f"included: kernel {t_k:.4f} ms (device alone {t_d:.4f}, "
+        f"{flops_ag / t_d / 1e9:.1f} TFLOP/s; bare twin device {t_bd:.4f}), "
+        f"plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms (device alone "
+        f"{t_ld:.4f}), kernel / torch.matmul {t_k / t_l:.3f} (bar <= 2.0: "
+        f"{'met' if t_k / t_l <= 2.0 else 'missed'}), bound {t_b:.4f} ms "
+        f"({by}) [{card}]")
+    one_wgmma_op("phase 5: ag_gemm_loopback", LOOPBACK_WGMMA, staged)
+    one_wgmma_op("phase 5: ag_gemm_segmented_bare", LOOPBACK_WGMMA, bare)
+    sass_count("phase 5", LOOPBACK_WGMMA, "HGMMA")
 
     ncols = AG_N - TAIL_COL_START
     t_k = timer(lambda: tg.matmul_tail_into(ct, a, b, TAIL_COL_START),
@@ -2234,10 +2318,13 @@ def call_device_ms(fn, n: int = 20) -> float:
     only uint8 fill). The profiler may miss a few records at a session's
     start (seen late in a run of many sessions), so each kernel's mean is
     over the launches it recorded, times its launches per call (its count
-    over n, rounded); a session whose flushes or kernels were recorded too
-    seldom for that (a count more than a quarter of n from a whole number
-    of launches per call) is run again, at most three times in all, and
-    then the time is not measured (NaN). Only reports a time."""
+    over the flushes recorded, rounded: a call whose records were missed
+    took its flush's with it, so a library call that launches one kernel
+    name twice still counts 2); a session whose flushes or kernels were
+    recorded too seldom for that (flushes more than a quarter of n short,
+    or a count more than a quarter of the flushes from a whole number of
+    launches per call) is run again, at most three times in all, and then
+    the time is not measured (NaN). Only reports a time."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
@@ -2258,8 +2345,9 @@ def call_device_ms(fn, n: int = 20) -> float:
         whole = 4 * abs(fills - n) <= n and bool(own)
         per_call = 0.0
         for ev in own:
-            k = round(ev.count / n)
-            whole = whole and k >= 1 and 4 * abs(ev.count - k * n) <= n
+            k = round(ev.count / max(fills, 1))
+            whole = (whole and k >= 1
+                     and 4 * abs(ev.count - k * fills) <= fills)
             per_call += k * ev.self_device_time_total / ev.count
         if whole:
             return per_call / 1e3
@@ -3208,14 +3296,17 @@ def phase_ep_kernels(gen, kernels, card):
     row_bytes = [p[0, 0, 0].numel() * p.element_size() for p in dpays]
     t_b, by = bound_ms(0, pm.ep_a2a_bytes(EP_DECODE_COUNTS, EP_DECODE_CAP,
                                           row_bytes))
-    t_l = timer(lambda: (dpays[0].transpose(0, 1).contiguous(),
-                         dpays[1].transpose(0, 1).contiguous(),
-                         dcounts.T.contiguous()), reps=50)
-    say(f"phase 8: ep_a2a at the decode shape: kernel "
-        f"{timer(run, reps=50):.4f} ms, device alone "
-        f"{kernel_device_ms(run, 'ep_a2a_kernel'):.4f} ms, library "
-        f"{t_l:.4f} ms (the three transpose copies), bound {t_b:.6f} ms "
-        f"({by}) [{card}]")
+    lib = lambda: (dpays[0].transpose(0, 1).contiguous(),
+                   dpays[1].transpose(0, 1).contiguous(),
+                   dcounts.T.contiguous())
+    t_k, t_l = timer(run, reps=50), timer(lib, reps=50)
+    t_d = kernel_device_ms(run, "ep_a2a_kernel")
+    t_ld = call_device_ms(lib)
+    say(f"phase 8: ep_a2a at the decode shape: kernel {t_k:.4f} ms, device "
+        f"alone {t_d:.4f} ms, library {t_l:.4f} ms (the three transpose "
+        f"copies; device alone {t_ld:.4f}), kernel / library {t_k / t_l:.3f}"
+        f" (device alone {t_d / t_ld:.3f}), bound {t_b:.6f} ms ({by}) "
+        f"[{card}]")
     return err, {"ep_a2a": rows["balanced"]}
 
 

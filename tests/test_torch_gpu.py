@@ -7,6 +7,7 @@ Tolerances: bf16 output ``atol=rtol=2e-2``; fp32 output ``atol=rtol=1e-4``
 (the kernel sums in another order than the plain version)."""
 
 import importlib
+import importlib.util
 import math
 import time
 
@@ -520,18 +521,24 @@ def test_ag_gemm_loopback_kernel_matches_plain(cuda, M, K, N, segments,
     assert tg.TAIL_INTO.launches == 2 * (cols < N)
 
 
-def test_ag_gemm_loopback_waits_for_delayed_producers(cuda):
+@pytest.mark.parametrize("M,K,N,segments", [(1024, 256, 384, 8),
+                                            (4096, 5120, 3200, 8),
+                                            (3000, 200, 640, 3)])
+def test_ag_gemm_loopback_waits_for_delayed_producers(cuda, M, K, N,
+                                                      segments):
     """Every producer item held back 1 ms behind a NaN-poisoned staging
     buffer: the consumer tiles must wait on the flags, so the result is
-    bit-identical to the undelayed one."""
-    a, b = _overlap_ab(cuda, 7, 1024, 256, 384)
-    want, _ = tg.ag_gemm_loopback_cuda(a, b, segments=8, cols=384)
+    bit-identical to the undelayed one, and the staging holds A after
+    (bench.py's shape and a ragged 3-segment M among them)."""
+    a, b = _overlap_ab(cuda, 7, M, K, N)
+    want, _ = tg.ag_gemm_loopback_cuda(a, b, segments=segments, cols=N)
     poison = torch.full_like(a, float("nan"))
     torch.cuda.synchronize()
-    got, _ = tg.ag_gemm_loopback_cuda(a, b, segments=8, cols=384,
-                                      staging=poison,
-                                      producer_delay_ns=1_000_000)
+    got, st = tg.ag_gemm_loopback_cuda(a, b, segments=segments, cols=N,
+                                       staging=poison,
+                                       producer_delay_ns=1_000_000)
     torch.cuda.synchronize()
+    assert st is poison and torch.equal(poison, a)
     assert torch.equal(got, want)
 
 
@@ -1838,3 +1845,192 @@ def test_ll_allgather_back_to_back_leaves_its_signals_at_zero(cuda):
     ops = _cuda_ops(lambda: tll.ll_all_gather_cuda(xs[0], stagings[0],
                                                    epoch_t))
     assert len(ops) == 1 and "ll_allgather_kernel" in ops[0], ops
+
+
+# --- the dense flash prefill on the wgmma tile, the AG-GEMM loopback's ------
+# wgmma items -----------------------------------------------------------------
+
+
+def _captured_ops(fn) -> list[str]:
+    """chip_smoke.captured_ops: the device operations one call of fn
+    enqueues, exactly (the call captured into a CUDA graph, never
+    replayed). A call that copies from the host cannot be captured."""
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.captured_ops(fn)
+
+
+# (B, L, Hkv, S, offset, kv_len, seq_lens, layout): offsets 0 and 300;
+# varlen rows of 1 and of a length that ends mid-chunk; kv_len at 1, 127,
+# 128 and 129 (and past 256) per row; S no multiple of 128; the bhsd
+# layout; L no multiple of a tile's 128 / g positions. NaN in K and V at
+# and past every row's kv_len.
+PREFILL_WGMMA_CASES = {
+    "offset0": (2, 200, 2, 333, 0, None, None, "bshd"),
+    "offset300": (2, 150, 2, 600, 300, None, None, "bshd"),
+    "varlen": (3, 260, 2, 700, 5, None, [260, 1, 123], "bshd"),
+    "kv_len_edges": (4, 200, 2, 512, 0, [1, 127, 128, 129], None, "bshd"),
+    "kv_len_past_256": (4, 400, 1, 512, 0, [257, 383, 384, 385], None,
+                        "bshd"),
+    "bhsd": (2, 300, 2, 400, 17, None, None, "bhsd"),
+}
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("case", sorted(PREFILL_WGMMA_CASES))
+def test_flash_prefill_wgmma_tile_matches_plain(cuda, case, g):
+    """bf16 at head_dim 128 on the wgmma kernel against the plain version
+    (2e-2): finite output, padding rows exact zeros, and the call runs the
+    wgmma kernel once (its captured graph, the one device operation, where
+    the offsets are ints; by torch.profiler where they are tensors)."""
+    B, L, Hkv, S, off, kv_len, seq_lens, layout = PREFILL_WGMMA_CASES[case]
+    gen = torch.Generator(device=cuda).manual_seed(L + g)
+    q = _randn(gen, B, L, Hkv * g, 128, dtype=torch.bfloat16)
+    k = _randn(gen, B, S, Hkv, 128, dtype=torch.bfloat16)
+    v = _randn(gen, B, S, Hkv, 128, dtype=torch.bfloat16)
+    kw = dict(offset=off, kv_layout=layout)
+    q_lens = [L] * B
+    if seq_lens is not None:
+        kw["seq_lens"] = torch.tensor(seq_lens, dtype=torch.int32,
+                                      device=cuda)
+        lens, q_lens = [off + n for n in seq_lens], seq_lens
+    elif kv_len is not None:
+        kw["kv_len"] = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+        lens = kv_len
+    else:
+        lens = [off + L] * B
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    if layout == "bhsd":
+        k, v = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    _build.reset_counts()
+    got = tsp.flash_prefill(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tsp.FLASH_PREFILL.launches == 1
+    assert torch.isfinite(got).all()
+    for b, n in enumerate(q_lens):
+        assert (got[b, n:] == 0).all()
+    torch.testing.assert_close(got, tsp.flash_prefill_ref(q, k, v, **kw),
+                               atol=2e-2, rtol=2e-2)
+    run = lambda: tsp.flash_prefill(q, k, v, **kw)
+    if seq_lens is None and kv_len is None:
+        ops = _captured_ops(run)
+        assert len(ops) == 1 and "flash_prefill_wgmma_kernel" in ops[0], ops
+    else:
+        ops = [op for op in _cuda_ops(run) if "flash_prefill" in op]
+        assert len(ops) == 1 and "flash_prefill_wgmma_kernel" in ops[0], ops
+
+
+def test_flash_prefill_misaligned_stride_keeps_the_mma_tile(cuda):
+    """A cache whose batch stride is no whole number of 16-byte units (one
+    batch row: cp.async never steps by it, TMA refuses it) runs the
+    mma.sync kernel, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(91)
+    S, Hkv, L = 300, 2, 150
+    q = _randn(gen, 1, L, 8, 128, dtype=torch.bfloat16)
+    store = _randn(gen, 2, S * Hkv * 128 + 8, dtype=torch.bfloat16)
+    k, v = (s.as_strided((1, S, Hkv, 128), (3, Hkv * 128, 128, 1))
+            for s in store)
+    assert not tsp.prefill_wgmma_ready(q, k, 128 ** -0.5)
+    run = lambda: tsp.flash_prefill(q, k, v, offset=0)
+    got = run()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, tsp.flash_prefill_ref(q, k, v, offset=0),
+                               atol=2e-2, rtol=2e-2)
+    ops = [op for op in _cuda_ops(run) if "flash_prefill" in op]
+    assert len(ops) == 1 and "flash_prefill_mma_kernel" in ops[0], ops
+
+
+def test_flash_prefill_back_to_back_leaves_its_ticket_at_zero(cuda):
+    """100 calls back to back on one stream, no host reset and no
+    synchronize between them, alternating shapes, int and per-row offsets:
+    every result is the first call's bits for its inputs, and the stream's
+    ticket is 0 after."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    gen = torch.Generator(device=cuda).manual_seed(92)
+    cases = []
+    for B, L, Hq, Hkv, S, kw in (
+            (2, 300, 16, 2, 512, dict(offset=40)),
+            (3, 128, 8, 8, 200, dict(offset=torch.tensor(
+                [0, 7, 72], dtype=torch.int32, device=cuda)))):
+        q = _randn(gen, B, L, Hq, 128, dtype=torch.bfloat16)
+        k = _randn(gen, B, S, Hkv, 128, dtype=torch.bfloat16)
+        v = _randn(gen, B, S, Hkv, 128, dtype=torch.bfloat16)
+        cases.append((q, k, v, kw))
+    firsts = [tsp.flash_prefill(q, k, v, **kw) for q, k, v, kw in cases]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = [tsp.flash_prefill(*cases[i % 2][:3], **cases[i % 2][3])
+            for i in range(100)]
+    torch.cuda.synchronize()
+    assert tsp.FLASH_PREFILL.launches == 100
+    for i, got in enumerate(outs):
+        assert torch.equal(got, firsts[i % 2]), i
+    dev = cases[0][0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(_signal._ARRIVALS[(dev, stream, tsp.FLASH_PREFILL.name)]
+               [0]) == 0
+
+
+@pytest.mark.parametrize("M,K,N,segments,cols,tile", [
+    (4096, 5120, 3200, 8, 3200, "wgmma"), (4096, 5120, 3200, 8, 640,
+                                           "wgmma"),
+    (4096, 5120, 3200, 8, 128, "wgmma"), (3000, 200, 640, 3, 200, "wgmma"),
+    (3000, 200, 640, 3, 640, "wgmma"), (3000, 2052, 640, 3, 640, "mma")])
+def test_ag_gemm_loopback_wgmma_items(cuda, M, K, N, segments, cols, tile):
+    """Staged and bare against their plain versions (2e-2) at bench.py's
+    shape with 3,200, 640 and 128 columns and at a ragged 3-segment M
+    (segments of 1,000 rows, chunks of 8) with 200 and 640; K = 2,052 (no
+    whole 16-byte rows) runs the mma.sync tile in the same one launch.
+    Each call is one device operation, its kernel."""
+    a, b = _overlap_ab(cuda, M + K, M, K, N)
+    want = tg.matmul_ref(a, b[:, :cols])
+    staged = lambda: tg.ag_gemm_loopback_cuda(a, b, segments=segments,
+                                              cols=cols)
+    bare = lambda: tg.ag_gemm_segmented_bare_cuda(a, b, segments=segments,
+                                                  cols=cols)
+    _build.reset_counts()
+    out1, st = staged()
+    out2 = bare()
+    torch.cuda.synchronize()
+    assert tg.AG_LOOPBACK.launches == 2
+    assert torch.equal(st, a)
+    for got in (out1, out2):
+        torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    for run in (staged, bare):
+        ops = _captured_ops(run)
+        assert len(ops) == 1 and f"ag_loopback_kernel_{tile}" in ops[0], ops
+
+
+def test_ag_gemm_loopback_back_to_back_leaves_its_ticket_at_zero(cuda):
+    """100 calls back to back, no host reset and no synchronize between
+    them, staged and bare, two shapes (the wgmma and the mma.sync items):
+    every result is the first call's bits, and the ticket is 0 after."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    shapes = [(1024, 256, 384, 8), (300, 36, 200, 3)]
+    ops = []
+    for i, (M, K, N, segs) in enumerate(shapes):
+        a, b = _overlap_ab(cuda, 50 + i, M, K, N)
+        ops.append(lambda a=a, b=b, s=segs, n=N:
+                   tg.ag_gemm_loopback_cuda(a, b, segments=s, cols=n)[0])
+        ops.append(lambda a=a, b=b, s=segs, n=N:
+                   tg.ag_gemm_segmented_bare_cuda(a, b, segments=s, cols=n))
+    firsts = [op() for op in ops]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = [ops[i % 4]() for i in range(100)]
+    torch.cuda.synchronize()
+    assert tg.AG_LOOPBACK.launches == 100
+    for i, got in enumerate(outs):
+        assert torch.equal(got, firsts[i % 4]), i
+    dev = firsts[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(_signal._ARRIVALS[(dev, stream, tg.AG_LOOPBACK.name)][0]) \
+        == 0

@@ -1,6 +1,9 @@
 // The work items of the multi-rank AG-GEMM over world simulated ranks on
 // one card, with an expert dimension: ag_gemm.cu runs them with one expert
-// (the dense AG-GEMM), ag_group_gemm.cu with E (the MoE AG-GroupGEMM).
+// (the dense AG-GEMM), ag_group_gemm.cu with E (the MoE AG-GroupGEMM), and
+// ag_gemm_loopback.cu at world 1 with one expert (the one-chip loopback,
+// whose chunks never straddle a segment; its bare twin has no producer
+// items, and its consumers read A itself and wait on nothing).
 //
 // A (world, E, m, K): source src's rows of expert e; S (world, E, world, m,
 // K): rank d's gathered rows of expert e in absolute source order,
@@ -66,12 +69,13 @@ struct Geometry {
 };
 
 // The geometry of a call with bm x bn tiles, or false when the shapes do
-// not fit the kernel's int indices.
+// not fit the kernel's int indices. Without producers (produce false) the
+// consumer items read their rows in place and wait on no flag.
 inline bool make_geometry(long long world, long long E, long long m,
                           long long K, long long n, long long cols,
                           long long ec, long long chunk_rows, int bm, int bn,
-                          Geometry* g) {
-  if (world < 2 || E <= 0 || m <= 0 || K <= 0 || n <= 0 || cols <= 0 ||
+                          Geometry* g, bool produce = true) {
+  if (world < 1 || E <= 0 || m <= 0 || K <= 0 || n <= 0 || cols <= 0 ||
       cols > n || ec <= 0 || chunk_rows <= 0 || world * m > INT32_MAX ||
       K > INT32_MAX || n > INT32_MAX || E > INT32_MAX)
     return false;
@@ -90,7 +94,7 @@ inline bool make_geometry(long long world, long long E, long long m,
   g->tiles_m = (int)((world * m + bm - 1) / bm);
   g->tiles_n = (int)((cols + bn - 1) / bn);
   const long long units = g->n_echunks;
-  const long long p = world * g->n_rchunks;
+  const long long p = produce ? world * g->n_rchunks : 0;
   const long long c = world * g->ec * g->tiles_m * g->tiles_n;
   if (units * (p + c) > INT32_MAX) return false;
   g->units = (int)units;
@@ -114,7 +118,9 @@ __device__ __forceinline__ Item item_of(int t, const Geometry& g) {
 }
 
 // The items of one call, over a Path that moves the rows and runs the
-// tiles (WgPath, TilePath). Every thread of the block calls it.
+// tiles (WgPath, TilePath). Every thread of the block calls it. Each block
+// takes one ticket past the work; the block that takes the last of them
+// leaves the ticket at 0 for the next call.
 template <class Path>
 __device__ __forceinline__ void run_items(Path& path, uint32_t* flags,
                                           int* ticket, uint32_t epoch,
@@ -126,7 +132,10 @@ __device__ __forceinline__ void run_items(Path& path, uint32_t* flags,
   const int per_rank = g.ec * g.tiles_m * g.tiles_n;
   for (;;) {
     const int t = gemm::take_ticket(ticket);
-    if (t >= g.total) return;
+    if (t >= g.total) {
+      if (threadIdx.x == 0 && t == g.total + (int)gridDim.x - 1) *ticket = 0;
+      return;
+    }
     const Item it = item_of(t, g);
     const int ce = it.unit;
     if (it.producer) {  // source src pushes chunk c to every rank
@@ -154,7 +163,7 @@ __device__ __forceinline__ void run_items(Path& path, uint32_t* flags,
     const int j = (rr / g.tiles_n) % g.tiles_m, nt = rr % g.tiles_n;
     const int mt = ((d * g.m) / g.bm + j) % g.tiles_m;
     const int m0 = mt * g.bm, n0 = nt * g.bn;
-    if (threadIdx.x == 0) {  // first touch: every chunk of these rows
+    if (threadIdx.x == 0 && g.p_items) {  // first touch: every chunk
       const int end = min(m0 + g.bm, rows);
       const uint32_t* ef =
           flags + (size_t)(e / g.ec) * g.n_rchunks;  // expert e's chunks

@@ -22,111 +22,109 @@
 //   consumer blocks spinning on its flag hold every SM slot, so a copy
 //   "engine" outside the kernel deadlocks whenever the consumer reaches the
 //   card first. The copies are therefore the first work items of the
-//   consumer kernel itself. The grid is persistent (no larger than the
-//   card holds at once) and an atomic ticket hands out work in order:
-//   first the producer items (chunks of gcd(segment rows, 16) rows of A,
-//   in segment order: each copied with 16-byte loads and stores, then its
-//   flag raised to the call's epoch with a release store, language.cuh),
-//   then the consumer tiles (128 x 128 outputs, in segment order). A
-//   producer never waits, and a block takes a ticket only while it runs,
-//   so every flag a consumer waits on belongs to a running producer: no
-//   deadlock, whatever the dispatch order. A consumer's thread 0 waits on
-//   the flags of the chunks its rows touch (first touch), the block meets
-//   at a barrier, and the tile runs gemm_tile.cuh's mma.sync main loop over
-//   the staged rows. The TPU kernel's VMEM double buffer of A segments is
-//   the cp.async stage ring inside each block. The bare variant has no
-//   staging, flags or producer items and keeps the same persistent grid,
-//   ticket order and tiles. delay_ns holds every producer item back before
-//   its copy (a test of the waits: the result must not change).
-#include "gemm_tile.cuh"
-#include "language.cuh"
+//   consumer kernel itself: ag_gemm.cuh's items at world 1 with one expert.
+//   The grid is persistent (no larger than the card holds at once) and an
+//   atomic ticket hands out work in order: first the producer items (chunks
+//   of gcd(segment rows, 16) rows of A, so no chunk straddles a segment, in
+//   segment order), then the consumer tiles (row tile by row tile, which is
+//   segment order). A producer never waits, and a block takes a ticket only
+//   while it runs, so every flag a consumer waits on belongs to a running
+//   producer: no deadlock, whatever the dispatch order.
+//
+//   bf16 rows that TMA can read (K and n multiples of 8, 16-byte aligned
+//   bases: the wrapper's tma) run ag_gemm.cuh's WgPath. A producer item is
+//   thread 0 moving its chunk with bulk copies through the block's shared
+//   memory (wgmma_tile.cuh bulk_copy, 96 KB in flight), then raising the
+//   chunk's flag to the call's epoch once every byte has landed. A
+//   consumer tile is wgmma_tile.cuh's 128 x 128 wgmma tile fed by TMA from
+//   the staging and B (B's map covers all n columns; the store masks those
+//   past cols): its thread 0 acquires the flags of the chunks its rows
+//   touch (first touch) and fences the async proxy before its first TMA
+//   load of staged rows. Other rows run the same items on gemm_tile.cuh's
+//   mma.sync tile in the same one launch (TilePath: every thread copies).
+//   The bare variant has no producer items and no waits: its tiles read A.
+//
+//   The ticket lives in a persistent buffer (kernels/_signal.py arrivals)
+//   that the block taking the last ticket leaves at 0, and the host caches
+//   the kernel's shared-memory attribute and its persistent block count:
+//   a call is one device operation, the launch. delay_ns holds every
+//   producer item back before its copy (a test of the waits: the result
+//   must not change).
+#include "ag_gemm.cuh"
 
 namespace {
 
-using tdt::gemm::bf16;
+TDT_AG_KERNELS(ag_loopback)
 
-template <bool VEC>
-__global__ void __launch_bounds__(tdt::gemm::THREADS)
-    ag_loopback_kernel(const bf16* __restrict__ A, bf16* S,
-                       const bf16* __restrict__ B, bf16* __restrict__ C,
-                       uint32_t* flags, int* ticket, uint32_t epoch, int M,
-                       int cols, int ldb, int K, int chunk_rows,
-                       unsigned long long delay_ns) {
+// Launch `kernel` over the persistent grid of g's items: its shared
+// memory limit raised once, its block count from the cached occupancy.
+template <class Kernel, class... Args>
+cudaError_t launch_items(Kernel kernel, int threads, int smem,
+                         const tdt::ag::Geometry& g, cudaStream_t s,
+                         Args... args) {
   using namespace tdt::gemm;
-  namespace lang = tdt::lang;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const bool staged = S != nullptr;
-  const int producers = staged ? M / chunk_rows : 0;
-  const int tiles_n = (cols + BN - 1) / BN;
-  const int total = producers + ((M + BM - 1) / BM) * tiles_n;
-  for (;;) {
-    const int t = take_ticket(ticket);
-    if (t >= total) return;
-    if (t < producers) {  // stage one chunk of rows, then raise its flag
-      const size_t base = (size_t)t * chunk_rows * K;
-      lang::sleep_ns(delay_ns);
-      lang::putmem_signal(S + base, A + base,
-                          (size_t)chunk_rows * K * sizeof(bf16), flags + t,
-                          epoch);
-      continue;
-    }
-    const int tile = t - producers;  // tiles in segment order
-    const int m0 = (tile / tiles_n) * BM, n0 = (tile % tiles_n) * BN;
-    if (staged) {
-      if (threadIdx.x == 0) {
-        const int last = min(m0 + BM, M) - 1;
-        for (int c = m0 / chunk_rows; c <= last / chunk_rows; ++c)
-          lang::wait(flags + c, epoch);
-      }
-      __syncthreads();
-    }
-    Acc acc;
-    bf16_mainloop<VEC>(staged ? S : A, K, B, ldb, M, cols, K, m0, n0, smem,
-                       acc);
-    for_each_pair(acc, m0, n0, [&](int gr, int gc, float x0, float x1) {
-      if (gr < M) store_pair<VEC>(C + (size_t)gr * cols, gc, cols, x0, x1);
-    });
-    // bf16_mainloop ends at a barrier, so shared memory is free for the
-    // next ticket's tile.
-  }
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  unsigned blocks = 0;
+  if (err == cudaSuccess)
+    err = persistent_blocks(kernel, threads, smem, g.total, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, threads, smem, s>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // a (M, K), b (K, n), out (M, cols). staging (M, K) with flags (M /
-// chunk_rows of them, uint32) for the loopback, or null for the segmented
-// bare variant. ticket: one int32 of scratch, zeroed here on the stream.
+// chunk_rows of them, uint32, raised to epoch) for the loopback, or null
+// for the segmented bare variant. ticket: one int32, 0 on entry and left
+// at 0 by the kernel. tma 1 when TMA can read every operand (K and n
+// multiples of 8, 16-byte aligned a, staging and b: the wgmma tile), 0 for
+// the mma.sync tile. delay_ns holds every producer back (0 in use).
 extern "C" int tdt_ag_gemm_loopback(const void* a, void* staging,
                                     const void* b, void* out, void* flags,
                                     void* ticket, unsigned epoch, long long M,
                                     long long cols, long long n, long long K,
-                                    long long chunk_rows,
+                                    long long chunk_rows, int tma,
                                     unsigned long long delay_ns,
                                     void* stream) {
-  using namespace tdt::gemm;
+  namespace ag = tdt::ag;
+  using tdt::gemm::bf16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || cols <= 0 || cols > n || K < 0 || chunk_rows <= 0 ||
-      M % chunk_rows || M > INT32_MAX || n > INT32_MAX || K > INT32_MAX)
+  if (M <= 0 || cols <= 0 || cols > n || K <= 0 || chunk_rows <= 0 ||
+      M % chunk_rows)
     return cudaErrorInvalidValue;
-  const long long producers = staging ? M / chunk_rows : 0;
-  const long long total = producers + ((M + BM - 1) / BM) *
-                                          ((cols + BN - 1) / BN);
-  if (total > INT32_MAX) return cudaErrorInvalidValue;
-  const bool vec = K % 8 == 0 && n % 8 == 0 && cols % 8 == 0 &&
-                   aligned16(a) && aligned16(b) && aligned16(out) &&
-                   (!staging || aligned16(staging));
-  auto kernel = vec ? ag_loopback_kernel<true> : ag_loopback_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  unsigned blocks = 0;
-  if ((err = persistent_blocks(kernel, total, &blocks)) != cudaSuccess ||
-      (err = cudaMemsetAsync(ticket, 0, sizeof(int), s)) != cudaSuccess)
-    return err;
-  kernel<<<blocks, THREADS, SMEM_BYTES, s>>>(
-      static_cast<const bf16*>(a), static_cast<bf16*>(staging),
-      static_cast<const bf16*>(b), static_cast<bf16*>(out),
-      static_cast<uint32_t*>(flags), static_cast<int*>(ticket), epoch,
-      (int)M, (int)cols, (int)n, (int)K, (int)chunk_rows, delay_ns);
-  return cudaGetLastError();
+  const bool staged = staging != nullptr;
+  const bf16* A = static_cast<const bf16*>(a);
+  // The rows the consumers read: the staging, or A itself when bare.
+  bf16* S = staged ? static_cast<bf16*>(staging) : const_cast<bf16*>(A);
+  bf16* C = static_cast<bf16*>(out);
+  uint32_t* fl = static_cast<uint32_t*>(flags);
+  int* tk = static_cast<int*>(ticket);
+  ag::Geometry g;
+  if (tma) {
+    const int bn = ag::tile_n(cols), bm = ag::tile_m(bn, M);
+    CUtensorMap ta, tb;
+    if (!ag::tma_ready(a, S, b, K, n) ||
+        !ag::make_geometry(1, 1, M, K, n, cols, 1, chunk_rows, bm, bn, &g,
+                           staged) ||
+        !tdt::wg::encode_a(&ta, S, K, M, 1, bm) ||
+        !tdt::wg::encode_b(&tb, b, n, K, 1))
+      return cudaErrorInvalidValue;
+    constexpr int T = tdt::wg::THREADS, SM = tdt::wg::SMEM_BYTES;
+    if (bm == 256)
+      return launch_items(ag_loopback_kernel_wgmma<256, 96>, T, SM, g, s,
+                          ta, tb, A, S, C, fl, tk, epoch, g, delay_ns);
+    if (bn == 96)
+      return launch_items(ag_loopback_kernel_wgmma<128, 96>, T, SM, g, s,
+                          ta, tb, A, S, C, fl, tk, epoch, g, delay_ns);
+    return launch_items(ag_loopback_kernel_wgmma<128, 128>, T, SM, g, s, ta,
+                        tb, A, S, C, fl, tk, epoch, g, delay_ns);
+  }
+  if (!ag::make_geometry(1, 1, M, K, n, cols, 1, chunk_rows, tdt::gemm::BM,
+                         tdt::gemm::BN, &g, staged))
+    return cudaErrorInvalidValue;
+  return launch_items(ag_loopback_kernel_mma, tdt::gemm::THREADS,
+                      tdt::gemm::SMEM_BYTES, g, s, A, S,
+                      static_cast<const bf16*>(b), C, fl, tk, epoch, g,
+                      delay_ns);
 }

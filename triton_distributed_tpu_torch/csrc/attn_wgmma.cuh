@@ -6,10 +6,10 @@
 //     128 rows with the 128-byte swizzle (rows of 128 bytes, one half of
 //     the head each), as wgmma_tile.cuh's A operand.
 //   K and V come in chunks of 128 keys (32 KB each) through a ring of
-//     STAGES stages. A stage's K is two such 128-byte-swizzled boxes of
-//     128 keys; its V is wgmma_tile.cuh's MN-major B layout, eight boxes of
-//     32 head columns x 64 keys with the 64-byte swizzle. Each stage has a
-//     full barrier for K and one for V (the loader's expected bytes).
+//     STAGES stages. A stage's K and its V are each two such
+//     128-byte-swizzled boxes of 128 keys (one key's half head a 128-byte
+//     row), K read K-major and V MN-major. Each stage has a full barrier
+//     for K and one for V (the loader's expected bytes).
 //   S = Q K^T is wgmma m64n128k16 with both operands in shared memory and K
 //     K-major (B not transposed), eight k-steps over the head. The
 //     streaming softmax runs in f32 on S in registers (the running max and
@@ -371,9 +371,11 @@ struct Rows {
   // Warpgroup w's n chunks, uses u .. u + n - 1 of the ring: chunk k's S
   // issued, then chunk k - 1's P V, chunk k's softmax while that P V runs,
   // then O's rescale and P's packing. tile.limits(k, lim) gives the keys of
-  // chunk k this thread's rows see (BKV or more: all), and tile.refill(k)
-  // is called by the thread that releases chunk k's stage last. Every wait
-  // and every branch comes while no product is in flight.
+  // chunk k this thread's rows see (BKV or more: all), tile.v_landed(k) is
+  // called by every thread of both warpgroups once chunk k's V has landed
+  // and before any product reads it, and tile.refill(k) by the thread that
+  // releases chunk k's stage last. Every wait and every branch comes while
+  // no product is in flight.
   template <typename Tile>
   __device__ __forceinline__ void run(const Smem& sm, int w, uint32_t u,
                                       int n, float scale_log2, Tile& tile) {
@@ -403,6 +405,7 @@ struct Rows {
       mk = masked(k);
       wait_k(sm, u + k);
       wait_v(sm, u + k - 1);
+      tile.v_landed(k - 1);
       turn_wait(w);
       wg::wgmma_fence();  // sc, o and p were written since the last wgmma
       issue_s(sm, w, u + k, sc);
@@ -418,6 +421,7 @@ struct Rows {
       rescale_pack(sc, corr, p);
     }
     wait_v(sm, u + n - 1);
+    tile.v_landed(n - 1);
     turn_wait(w);
     wg::wgmma_fence();
     issue_pv(sm, u + n - 1, p);

@@ -394,6 +394,31 @@ inline cudaError_t resident_blocks(const void* kernel, int threads,
   return cudaSuccess;
 }
 
+// Raise a kernel's dynamic shared memory limit to `smem` bytes, once per
+// (kernel, device): the attribute stays set, and a short call would
+// otherwise pay the runtime call every time. Errors are not cached.
+inline cudaError_t allow_smem(const void* kernel, size_t smem) {
+  struct Entry {
+    const void* kernel;
+    int device;
+    size_t smem;
+  };
+  static std::mutex mu;
+  static std::vector<Entry> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Entry& e : done)
+    if (e.kernel == kernel && e.device == device && e.smem == smem)
+      return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) done.push_back(Entry{kernel, device, smem});
+  return err;
+}
+
 // Blocks of a persistent grid for a kernel of `threads` threads and `smem`
 // bytes of dynamic shared memory: as many as the card holds at once, and no
 // more than `work` items. A block that waits on another's item can then

@@ -540,6 +540,9 @@ struct Chunks {
   __device__ __forceinline__ void refill(int j) const {
     if (j + tdt::attn::STAGES < n) load(j + tdt::attn::STAGES);
   }
+  // A chunk's keys past its segment lie past the plane's rows, which TMA
+  // reads as zeros: nothing to clear.
+  __device__ __forceinline__ void v_landed(int) const {}
 };
 
 // Attend item (r, h, qt): every thread. u counts the ring uses of this

@@ -22,9 +22,9 @@
 // rows, plane), a plane being one (rank, expert) matrix, so a box never
 // reads into the next plane and ragged edges need no mask until the store.
 //
-// Host side: encode_3d builds a CUtensorMap with cuTensorMapEncodeTiled,
-// looked up at run time (cudaGetDriverEntryPoint), so the library needs no
-// libcuda at link time. Kernels take the maps as
+// Host side: encode_3d (encode_4d) builds a CUtensorMap with
+// cuTensorMapEncodeTiled, looked up at run time (cudaGetDriverEntryPoint),
+// so the library needs no libcuda at link time. Kernels take the maps as
 // __grid_constant__ parameters.
 #pragma once
 
@@ -148,6 +148,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The 4-D box at (c0, c1, c2, c3) of `map`, as tma_load_3d.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -487,6 +500,25 @@ inline bool encode_3d(CUtensorMap* map, const void* base, uint64_t inner,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
             const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor of four dimensions, dims[0] contiguous, dims[i] elements
+// strides[i - 1] bytes apart (each a multiple of 16), read in boxes of
+// box[0 .. 3] elements with the given swizzle; out-of-bounds elements read
+// as zero. False when the encoding is refused.
+inline bool encode_4d(CUtensorMap* map, const void* base,
+                      const uint64_t (&dims)[4], const uint64_t (&strides)[3],
+                      const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            d, st, bx, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

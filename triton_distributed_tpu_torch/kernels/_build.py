@@ -47,10 +47,11 @@ SIGNATURES = {
     "tdt_matmul": [P, P, P, I64, I64, I64, I32, P],
     # q, k, v, o, rows (nullable (3, B) int32: offset, kv_len, q_len),
     # offset, kv_len, q_len, B, L, Hq, Hkv, S, dh,
-    # k batch/seq/head strides, scale, dtype, stream
+    # k batch/seq/head strides, scale, dtype, tma (bf16 at head_dim 128:
+    # the wgmma tile), ticket, stream
     "tdt_flash_prefill": [P, P, P, P, P, I32, I32, I32,
                           I64, I64, I64, I64, I64, I64,
-                          I64, I64, I64, F32, I32, P],
+                          I64, I64, I64, F32, I32, I32, P, P],
     # q, k, v, out, lse, kv_lens (nullable (B,) int32), kv_len,
     # B, Hq, Hkv, S, dh, k batch/seq/head strides, scale, dtype, split
     # partials, arrival counters (both nullable at one split), splits,
@@ -68,9 +69,9 @@ SIGNATURES = {
     # x, w, out, counts ((E,) int32), E, cap, d, f, dtype, stream
     "tdt_grouped_gemm": [P, P, P, P, I64, I64, I64, I64, I32, P],
     # a, staging (null: bare), b, out, flags, ticket, epoch, M, cols, n, K,
-    # chunk rows, producer delay (ns), stream
+    # chunk rows, tma (the wgmma tile), producer delay (ns), stream
     "tdt_ag_gemm_loopback": [P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
-                             U64, P],
+                             I32, U64, P],
     # c, a, b, out, M, n, K, col_start, stream
     "tdt_matmul_tail_into": [P, P, P, P, I64, I64, I64, I64, P],
     # a, b, out, staging, flags, ticket, epoch, segments, m, N, K, stream

@@ -13,13 +13,14 @@ The one-chip overlap entry points (``ag_gemm_loopback`` :543,
 ``ag_gemm_segmented_bare`` :631, their tail ``matmul_tail_into`` :232 and
 ``fused_matmul_step`` :892) run on ``csrc/ag_gemm_loopback.cu``,
 ``csrc/matmul_tail_into.cu`` and ``csrc/fused_step.cu``: in the loopback
-the first work items of one persistent kernel stage A chunk by chunk and
-raise a flag per chunk, and its consumer tiles wait on the flags
-(``csrc/language.cuh``). Those kernels take bf16 operands; on the CPU each
-entry point runs the plain versions. Mosaic's VMEM arithmetic
-(``_split_blocks`` :151, ``_overlap_vmem``, ``_OVERLAP_VMEM_CAP``) does
-not carry over: the CUDA tiles are fixed at 128 x 128 and mask ragged
-edges.
+the first work items of one persistent kernel stage A chunk by chunk (bulk
+copies) and raise a flag per chunk, and its consumer tiles (``wgmma``, fed
+by TMA, where TMA can read the rows) wait on the flags
+(``ag_loopback_items`` lists them in ticket order). Those kernels take
+bf16 operands; on the CPU each entry point runs the plain versions.
+Mosaic's VMEM arithmetic (``_split_blocks`` :151, ``_overlap_vmem``,
+``_OVERLAP_VMEM_CAP``) does not carry over: the CUDA tiles are fixed and
+mask ragged edges.
 
 At world > 1 the ranks are simulated on one card (``runtime/mesh.py``):
 ``ag_gemm_device`` takes every rank's A shard and B shard stacked, a
@@ -349,29 +350,73 @@ def segmented_bare_ref(a: torch.Tensor, b: torch.Tensor, *,
     return matmul_ref(a, b[:, :cols])
 
 
+def loopback_chunk_rows(M: int, segments: int) -> int:
+    """Rows of one producer item of the loopback: gcd(M / segments,
+    STAGE_CHUNK_ROWS), so that no chunk straddles a segment."""
+    return math.gcd(M // segments, STAGE_CHUNK_ROWS)
+
+
+def loopback_tile(M: int, cols: int) -> tuple[int, int]:
+    """The loopback's ``wgmma`` tile (rows, columns) for an (M, cols)
+    output (``csrc/ag_gemm.cuh`` ``tile_m``, ``tile_n``): 96 columns where
+    they cover cols with fewer masked columns than 128, then 256 rows over
+    more than 128; else 128 x 128. Rows TMA cannot read take the
+    ``mma.sync`` tile's 128 x 128."""
+    bn = 96 if cols % 96 == 0 and cols % 128 else 128
+    return (256 if bn == 96 and M > 128 else 128), bn
+
+
+def ag_loopback_items(M: int, cols: int, segments: int, *,
+                      staged: bool = True) -> list[tuple]:
+    """The loopback kernel's work items in ticket order (``csrc/ag_gemm.cuh``
+    ``run_items`` at world 1 with one expert): ``("produce", c, r0, r1)``
+    copies rows [r0, r1) of A into the staging and then raises flag c;
+    ``("tile", m0, n0, waits)`` is the output tile at rows m0 and columns
+    n0 (``loopback_tile``'s shape; masked at M and cols), whose thread 0
+    first acquires the flags ``waits`` (the chunks its rows touch; none
+    when bare). Every producer first, in segment order, then the tiles row
+    tile by row tile (segment order), each row tile's column tiles in a
+    row. The bare variant has no producers."""
+    chunk = loopback_chunk_rows(M, segments)
+    bm, bn = loopback_tile(M, cols)
+    items = [("produce", c, c * chunk, (c + 1) * chunk)
+             for c in range(M // chunk)] if staged else []
+    for m0 in range(0, M, bm):
+        waits = (tuple(range(m0 // chunk, (min(m0 + bm, M) - 1) // chunk + 1))
+                 if staged else ())
+        items += [("tile", m0, n0, waits) for n0 in range(0, cols, bn)]
+    return items
+
+
 def _ag_launch(a: torch.Tensor, b: torch.Tensor, *, segments: int,
                cols: int, staging: torch.Tensor | None,
                producer_delay_ns: int = 0) -> torch.Tensor:
     """Launch ``csrc/ag_gemm_loopback.cu`` on the current stream, staged
-    (``staging`` given) or bare."""
+    (``staging`` given) or bare: one device operation, the kernel (its
+    ticket is the stream's persistent one, left at 0 by the kernel). bf16
+    runs the ``wgmma`` tile where TMA can read every operand
+    (``_build.tma_rows``) and the ``mma.sync`` tile otherwise, in the same
+    one launch."""
     _check_bf16_cuda("ag_gemm_loopback_cuda", a, b)
     M, K = a.shape
     n = b.shape[1]
     if b.shape[0] != K or not 0 < cols <= n or segments < 1 \
-            or M % segments:
+            or M % segments or K == 0:
         raise ValueError(f"loopback shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}, cols {cols}, segments "
                          f"{segments}")
     out = torch.empty((M, cols), dtype=a.dtype, device=a.device)
-    # Producer chunks never straddle a segment.
-    chunk_rows = math.gcd(M // segments, STAGE_CHUNK_ROWS)
-    flags = _signal.flags(a.device, "ag_gemm_loopback", M // chunk_rows)
-    ticket = torch.empty(1, dtype=torch.int32, device=a.device)
+    chunk_rows = loopback_chunk_rows(M, segments)
+    stream = _build.stream_ptr(a)
+    flags = _signal.flags(a.device, AG_LOOPBACK.name, M // chunk_rows,
+                          stream)
+    ticket = _signal.arrivals(a.device, AG_LOOPBACK.name, 1, stream)
+    read = (a, b) if staging is None else (a, b, staging)
     err = _build.lib().tdt_ag_gemm_loopback(
         a.data_ptr(), None if staging is None else staging.data_ptr(),
         b.data_ptr(), out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
         _signal.next_epoch(a.device), M, cols, n, K, chunk_rows,
-        producer_delay_ns, _build.stream_ptr(a))
+        _build.tma_rows((K, n), *read), producer_delay_ns, stream)
     _build.check(err, "tdt_ag_gemm_loopback")
     AG_LOOPBACK.launches += 1
     return out

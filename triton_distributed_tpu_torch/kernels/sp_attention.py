@@ -4,7 +4,10 @@ decode against a contiguous KV cache.
 Counterpart of ``triton_distributed_tpu/kernels/sp_attention.py``:
 
 - ``flash_prefill`` (:412) -> ``csrc/flash_prefill.cu``, replacing
-  ``_flash_prefill_kernel`` (:308);
+  ``_flash_prefill_kernel`` (:308); bf16 at head_dim 128 that TMA can read
+  on the ``wgmma`` tile of ``csrc/attn_wgmma.cuh``
+  (``flash_prefill_wgmma_items`` and ``prefill_wgmma_tile`` mirror its
+  items), the rest on ``csrc/flash_prefill.cuh``'s tiles;
 - ``flash_decode_local`` (:654) -> ``csrc/flash_decode.cu``, replacing both
   ``_flash_decode_kernel`` (:511) and ``_flash_decode_bd_kernel`` (:567).
   The block-diagonal variant is a layout trick for the TPU's matrix unit;
@@ -131,6 +134,26 @@ def _rows(offset, kv_len, seq_lens, B: int, L: int, device):
     return offset, offset + L if kv_len is None else int(kv_len), L
 
 
+def prefill_mask(offset, kv_len, seq_lens, B: int, L: int, S: int,
+                 device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The prefill's mask, as the plain version applies it: ``(valid,
+    key_ok)``, valid (B, L, S) where query j of row b may see key s (s at
+    or before its position, s below the row's kv_len, j below its q_len)
+    and key_ok (B, S) where key s lies below the row's kv_len."""
+    offs, kvl, qln = _rows(offset, kv_len, seq_lens, B, L, device)
+    offs, kvl, qln = (torch.as_tensor(x, dtype=torch.int32,
+                                      device=device).reshape(-1).expand(B)
+                      for x in (offs, kvl, qln))
+    key_pos = torch.arange(S, device=device)
+    rows = torch.arange(L, device=device)
+    q_pos = offs[:, None] + rows[None]                                # (B, L)
+    key_ok = key_pos[None] < kvl[:, None]                             # (B, S)
+    valid = ((key_pos[None, None] <= q_pos[..., None])
+             & key_ok[:, None]
+             & (rows[None, :, None] < qln[:, None, None]))            # (B,L,S)
+    return valid, key_ok
+
+
 def flash_prefill_ref(q, k_cache, v_cache, *, offset=None, kv_len=None,
                       seq_lens=None, scale: float | None = None,
                       kv_layout: str = "bshd") -> torch.Tensor:
@@ -144,17 +167,8 @@ def flash_prefill_ref(q, k_cache, v_cache, *, offset=None, kv_len=None,
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
     scale = dh ** -0.5 if scale is None else scale
-    offs, kvl, qln = _rows(offset, kv_len, seq_lens, B, L, q.device)
-    offs, kvl, qln = (torch.as_tensor(x, dtype=torch.int32,
-                                      device=q.device).reshape(-1).expand(B)
-                      for x in (offs, kvl, qln))
-    key_pos = torch.arange(S, device=q.device)
-    rows = torch.arange(L, device=q.device)
-    q_pos = offs[:, None] + rows[None]                                # (B, L)
-    key_ok = key_pos[None] < kvl[:, None]                             # (B, S)
-    valid = ((key_pos[None, None] <= q_pos[..., None])
-             & key_ok[:, None]
-             & (rows[None, :, None] < qln[:, None, None]))            # (B,L,S)
+    valid, key_ok = prefill_mask(offset, kv_len, seq_lens, B, L, S,
+                                 q.device)
     qf = q.float().reshape(B, L, Hkv, g, dh)
     kf = torch.where(key_ok[..., None, None], k_cache.float(), 0.0)
     vf = torch.where(key_ok[..., None, None], v_cache.float(), 0.0)
@@ -169,11 +183,72 @@ def flash_prefill_ref(q, k_cache, v_cache, *, offset=None, kv_len=None,
     return out.reshape(B, L, Hq, dh).to(q.dtype)
 
 
+PREFILL_WGMMA_ROWS = 128  # query rows of a wgmma tile
+PREFILL_WGMMA_KEYS = 128  # keys of one of its chunks
+
+
+def prefill_wgmma_ready(q, k_cache, scale: float) -> int:
+    """1 when a call runs the ``wgmma`` tile: bf16 at head_dim 128, a
+    positive scale, and the (bshd view of the) cache's batch, sequence and
+    head strides whole numbers of 16-byte units (q is contiguous and every
+    base 16-byte aligned already); else 0, and the call keeps
+    ``flash_prefill.cuh``'s tiles."""
+    return int(q.dtype == torch.bfloat16 and q.shape[-1] == 128
+               and scale > 0
+               and all(st % 8 == 0 for st in k_cache.stride()[:3]))
+
+
+def flash_prefill_wgmma_items(B: int, L: int, Hq: int,
+                              Hkv: int) -> list[tuple]:
+    """The ``wgmma`` prefill kernel's tiles in ticket order (``csrc/
+    flash_prefill.cu``): ``(b, h, qt)``, tile qt of batch row b's kv head
+    h, one (b, h)'s tiles in a row, latest (the heaviest under the causal
+    mask) first."""
+    ppt = PREFILL_WGMMA_ROWS // (Hq // Hkv)
+    n_tiles = -(-L // ppt)
+    return [(b, h, qt) for b in range(B) for h in range(Hkv)
+            for qt in reversed(range(n_tiles))]
+
+
+def prefill_wgmma_tile(qt: int, h: int, *, L: int, Hq: int, Hkv: int,
+                       S: int, offset: int, kv_len: int,
+                       q_len: int) -> dict:
+    """What tile qt of kv head h computes for a batch row of the given
+    offset, kv_len and q_len (``csrc/flash_prefill.cu`` ``attend``):
+    ``rows``, its 128 (position, q head) pairs in shared-memory order
+    (positions at or past L are loaded as zeros and never stored);
+    ``keys``, each row's key limit (it sees keys [0, limit): the causal
+    frontier and kv_len, 0 for a padding row); ``chunks``, the 128-key
+    chunks it loads; ``boundary``, the chunk whose V rows at or past kv_len
+    are zeroed before any product reads them (None when no loaded chunk
+    straddles kv_len)."""
+    g = Hq // Hkv
+    ppt = PREFILL_WGMMA_ROWS // g
+    p0 = qt * ppt
+    kv_len = min(kv_len, S)
+    q_len = min(q_len, L)
+    q_hi = min(p0 + ppt, q_len)
+    kv_hi = min(kv_len, offset + q_hi) if q_hi > p0 else 0
+    chunks = -(-kv_hi // PREFILL_WGMMA_KEYS) if kv_hi > 0 else 0
+    rows = [(p0 + r // g, h * g + r % g) for r in range(PREFILL_WGMMA_ROWS)]
+    keys = [max(0, min(offset + p + 1, kv_len)) if p < q_hi else 0
+            for p, _ in rows]
+    boundary = None
+    for j in range(chunks):
+        if kv_len - j * PREFILL_WGMMA_KEYS < PREFILL_WGMMA_KEYS:
+            boundary = j
+    return dict(rows=rows, keys=keys, chunks=chunks, boundary=boundary)
+
+
 def flash_prefill_cuda(q, k_cache, v_cache, *, offset=None, kv_len=None,
                        seq_lens=None, scale: float | None = None,
                        kv_layout: str = "bshd") -> torch.Tensor:
-    """Launch ``csrc/flash_prefill.cu``: one block per (row, kv head,
-    q tile); see ``flash_prefill`` for the contract."""
+    """Launch ``csrc/flash_prefill.cu``; see ``flash_prefill`` for the
+    contract. bf16 at head_dim 128 that TMA can read
+    (``prefill_wgmma_ready``) runs the ``wgmma`` tile on one persistent
+    grid whose ticket is the stream's (``_signal.arrivals``, left at 0 by
+    the kernel): with integer offsets a call is one device operation. The
+    rest run one block per (row, kv head, q tile)."""
     B, L, Hq, dh = q.shape
     k_cache = _to_bshd(k_cache, kv_layout)
     v_cache = _to_bshd(v_cache, kv_layout)
@@ -190,10 +265,14 @@ def flash_prefill_cuda(q, k_cache, v_cache, *, offset=None, kv_len=None,
     if q.numel() == 0:
         return out
     sb, ss, sh = k_cache.stride(0), k_cache.stride(1), k_cache.stride(2)
+    stream = _build.stream_ptr(q)
+    tma = prefill_wgmma_ready(q, k_cache, scale)
+    ticket = (_signal.arrivals(q.device, FLASH_PREFILL.name, 1, stream)
+              .data_ptr() if tma else None)
     err = _build.lib().tdt_flash_prefill(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         rows_ptr, offs, kvl, qln, B, L, Hq, Hkv, S, dh, sb, ss, sh,
-        float(scale), _build.dtype_code(q), _build.stream_ptr(q))
+        float(scale), _build.dtype_code(q), tma, ticket, stream)
     _build.check(err, "tdt_flash_prefill")
     FLASH_PREFILL.launches += 1
     return out
