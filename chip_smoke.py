@@ -726,6 +726,14 @@ def one_wgmma_op(label: str, kernel: str, fn) -> None:
 # of the AG-GEMM loopback's tiles at phase 5's shapes.
 PREFILL_WGMMA = "flash_prefill_wgmma_kernel"
 LOOPBACK_WGMMA = "ag_loopback_kernel_wgmma"
+# The warp-specialised matmul (bf16 whose rows TMA reads) and the GEMM-RS
+# loopback's wgmma items.
+MATMUL_WS = "matmul_ws_kernel"
+RS_LOOPBACK_WGMMA = "gemm_rs_loopback_kernel_wgmma"
+# The matmul's bar: the four projections together, and phase 5's two bare
+# matmuls, at most this multiple of torch.matmul by events; the GEMM-RS
+# loopback's: at most this multiple of torch.addbmm.
+MATMUL_BAR, RS_LOOPBACK_BAR = 1.5, 2.0
 # The tensor-core kernel of each pool's mixed step (bf16 q at head_dim 128).
 MIXED_KERNEL = {None: "flash_prefill_mma_kernel",
                 "int8": "flash_prefill_mma_q8_kernel",
@@ -1706,12 +1714,24 @@ def phase_times(inputs, tg, tsp, card):
         t_p = timer(lambda: tg.matmul_ref(a, b), reps=3)
         t_l = timer(lambda: torch.matmul(a, b))
         t_b, _ = bound_ms(2 * M * N * K, 2 * (M * K + K * N + M * N))
+        t_d = kernel_device_ms(lambda: tg.matmul_cuda(a, b), MATMUL_WS)
+        t_ld = call_device_ms(lambda: torch.matmul(a, b))
+        flops = 2 * M * N * K
         say(f"phase 4: matmul {name} ({M}x{K})x({K}x{N}): kernel {t_k:.4f} "
-            f"ms, plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms, bound "
-            f"{t_b:.4f} ms")
+            f"ms (device alone {t_d:.4f}, {flops / t_d / 1e9:.1f} TFLOP/s), "
+            f"plain {t_p:.4f} ms, torch.matmul {t_l:.4f} ms (device alone "
+            f"{t_ld:.4f}, {flops / t_ld / 1e9:.1f} TFLOP/s), kernel / "
+            f"torch.matmul {t_k / t_l:.3f}, bound {t_b:.4f} ms [{card}]")
         ms, plain, lib, bnd = ms + t_k, plain + t_p, lib + t_l, bnd + t_b
     rows["matmul"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                           bound_ms=bnd, bound_by="operations")
+    say(f"phase 4: matmul, the four projections: kernel {ms:.4f} ms, "
+        f"torch.matmul {lib:.4f} ms, kernel / torch.matmul {ms / lib:.3f} "
+        f"(bar <= {MATMUL_BAR}: "
+        f"{'met' if ms / lib <= MATMUL_BAR else 'missed'}) [{card}]")
+    a, b = inputs["matmul_qkv"]
+    one_wgmma_op("phase 4: matmul", MATMUL_WS, lambda: tg.matmul_cuda(a, b))
+    sass_count("phase 4", MATMUL_WS, "HGMMA")
 
     q, k, v = inputs["flash_prefill"]
     t_k = timer(lambda: tsp.flash_prefill(q, k, v, offset=0), reps=5)
@@ -2066,6 +2086,22 @@ def phase_overlap(gen, tg, trs, kernels, card):
         err["gemm_rs_loopback"] = max(err["gemm_rs_loopback"], e)
         say(f"phase 5: gemm_rs_loopback ({Mr}x{RS_K})x({RS_K}x{Nr}) "
             f"segments {segs}: max_abs_err {e:.4g}")
+    # Every product tile held back 1 ms behind NaN staging: the folds must
+    # wait on the flags, not race them.
+    undelayed = trs.gemm_rs_loopback_cuda(ar, br, segments=SEGMENTS)
+    poison = torch.full((SEGMENTS - 1, m, RS_N), float("nan"), dtype=bf16,
+                        device="cuda")
+    delayed = trs.gemm_rs_loopback_cuda(ar, br, segments=SEGMENTS,
+                                        staging=poison,
+                                        producer_delay_ns=PRODUCER_DELAY_NS)
+    torch.cuda.synchronize()
+    if not torch.equal(delayed, undelayed):
+        raise AssertionError("phase 5: the delayed producers changed the "
+                             "GEMM-RS loopback's result (a fold raced a "
+                             "flag)")
+    say("phase 5: gemm_rs_loopback delayed producers (1 ms sleep, NaN "
+        "staging): result bit-identical to the undelayed run")
+    del poison, delayed, undelayed
 
     cf = c.clone()
     got = tg.fused_matmul_step(cf, a, b, FUSED_S)
@@ -2135,9 +2171,33 @@ def phase_overlap(gen, tg, trs, kernels, card):
                        2 * (AG_M * RS_K + RS_K * RS_N + m * RS_N))
     rows["gemm_rs_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                     bound_ms=t_b, bound_by=by)
+    rs_run = lambda: trs.gemm_rs_loopback(ar, br, segments=SEGMENTS)
+    t_d = kernel_device_ms(rs_run, RS_LOOPBACK_WGMMA)
+    t_ld = call_device_ms(lambda: torch.addbmm(z, a3, b3, beta=0))
     say(f"phase 5: gemm_rs_loopback ({AG_M}x{RS_K})x({RS_K}x{RS_N}) "
-        f"segments {SEGMENTS}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
-        f"torch.addbmm {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) [{card}]")
+        f"segments {SEGMENTS}: kernel {t_k:.4f} ms (device alone {t_d:.4f}, "
+        f"{2 * AG_M * RS_K * RS_N / t_d / 1e9:.1f} TFLOP/s), plain "
+        f"{t_p:.4f} ms, torch.addbmm {t_l:.4f} ms (device alone "
+        f"{t_ld:.4f}), kernel / torch.addbmm {t_k / t_l:.3f} (bar <= "
+        f"{RS_LOOPBACK_BAR}: "
+        f"{'met' if t_k / t_l <= RS_LOOPBACK_BAR else 'missed'}), bound "
+        f"{t_b:.4f} ms ({by}) [{card}]")
+    one_wgmma_op("phase 5: gemm_rs_loopback", RS_LOOPBACK_WGMMA, rs_run)
+    sass_count("phase 5", RS_LOOPBACK_WGMMA, "HGMMA")
+    # The matmul's bar on the bare arms: matmul_cuda at both of bench.py's
+    # per-rank products against torch.matmul.
+    for label, (x, w) in (("AG", (a, b)), ("RS", (ar, br))):
+        t_k = timer(lambda: tg.matmul_cuda(x, w), reps=20)
+        t_l = timer(lambda: torch.matmul(x, w), reps=20)
+        t_d = kernel_device_ms(lambda: tg.matmul_cuda(x, w), MATMUL_WS)
+        t_ld = call_device_ms(lambda: torch.matmul(x, w))
+        flops = 2 * x.shape[0] * x.shape[1] * w.shape[1]
+        say(f"phase 5: bare matmul_cuda {label} ({x.shape[0]}x{x.shape[1]})"
+            f"x({w.shape[0]}x{w.shape[1]}): kernel {t_k:.4f} ms (device "
+            f"alone {t_d:.4f}, {flops / t_d / 1e9:.1f} TFLOP/s), "
+            f"torch.matmul {t_l:.4f} ms (device alone {t_ld:.4f}), kernel / "
+            f"torch.matmul {t_k / t_l:.3f} (bar <= {MATMUL_BAR}: "
+            f"{'met' if t_k / t_l <= MATMUL_BAR else 'missed'}) [{card}]")
 
     cf = c.clone()
     s_b = torch.tensor(FUSED_S, dtype=bf16, device="cuda")

@@ -51,9 +51,17 @@ def _randn(gen, *shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("M,K,N", [(64, 128, 256), (130, 33, 77),
-                                   (1000, 512, 1032)])
+@pytest.mark.parametrize("M,K,N", [
+    (64, 128, 256), (130, 33, 77), (1000, 512, 1032), (64, 2048, 2048),
+    (130, 2048, 2048), (1000, 2048, 2048), (8192, 2048, 2048),
+    (64, 2048, 12288), (130, 2048, 12288), (1000, 2048, 12288),
+    (8192, 2048, 12288), (1000, 33, 2048), (130, 2048, 77)])
 def test_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
+    """bf16 whose rows TMA can read on the warp-specialised wgmma GEMM (the
+    128 x 256 tile where it gives every SM a tile, else 128 x 128: M 64,
+    130, 1,000 and 8,192 at N 2,048 and 12,288), K = 33 or N = 77 on the
+    mma.sync tile, f32 on the SIMT tile; one device operation a call, the
+    kernel the dispatch names."""
     gen = torch.Generator(device=cuda).manual_seed(M)
     a = _randn(gen, M, K, dtype=dtype)
     b = _randn(gen, K, N, dtype=dtype) * K ** -0.5
@@ -63,6 +71,31 @@ def test_matmul_kernel_matches_plain(cuda, dtype, M, K, N):
     assert tg.MATMUL.launches == 1
     tol = TOL[dtype]
     torch.testing.assert_close(got, tg.matmul_ref(a, b), atol=tol, rtol=tol)
+    ops = _captured_ops(lambda: tg.matmul_cuda(a, b))
+    assert len(ops) == 1, ops
+    if dtype == torch.float32:
+        assert "matmul_f32_kernel" in ops[0], ops
+    elif K % 8 or N % 8:
+        assert "matmul_bf16_kernel" in ops[0], ops
+    else:
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        bn = tg.matmul_tile(M, N, sms)[1]
+        assert f"matmul_ws_kernelILi{bn}E" in ops[0], ops
+
+
+def test_matmul_misaligned_view_keeps_the_mma_tile(cuda):
+    """A contiguous view of ``a`` whose base is 2 bytes past a 16-byte
+    boundary: TMA cannot read it, so the call runs the mma.sync tile."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    buf = _randn(gen, 1000 * 512 + 1, dtype=torch.bfloat16)
+    a = buf[1:].view(1000, 512)
+    b = _randn(gen, 512, 1024, dtype=torch.bfloat16) * 512 ** -0.5
+    assert a.data_ptr() % 16 and _build.tma_rows((512, 1024), a, b) == 0
+    got = tg.matmul_cuda(a, b)
+    torch.testing.assert_close(got, tg.matmul_ref(a, b), atol=2e-2,
+                               rtol=2e-2)
+    ops = _captured_ops(lambda: tg.matmul_cuda(a, b))
+    assert len(ops) == 1 and "matmul_bf16_kernel" in ops[0], ops
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -2034,3 +2067,93 @@ def test_ag_gemm_loopback_back_to_back_leaves_its_ticket_at_zero(cuda):
     stream = torch.cuda.current_stream(dev).cuda_stream
     assert int(_signal._ARRIVALS[(dev, stream, tg.AG_LOOPBACK.name)][0]) \
         == 0
+
+
+# --- the warp-specialised matmul's SASS, the GEMM-RS loopback's wgmma items -
+
+
+def test_new_gemm_kernels_issue_hgmma(cuda):
+    """chip_smoke.sass_count: the built library's warp-specialised matmul
+    and GEMM-RS loopback wgmma kernels hold HGMMA in their SASS."""
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for kernel in ("matmul_ws_kernel", "gemm_rs_loopback_kernel_wgmma"):
+        smoke.sass_count("test", kernel, "HGMMA")
+
+
+# (M, K, N, segments, kernel): bench.py's arm (fused wgmma items), m = 50
+# (split), K = 40 (80-byte rows: TMA reads them), K = 36 (72-byte rows:
+# the mma.sync items), segments 1 and 2.
+RS_LOOPBACK_CASES = [(4096, 3200, 5120, 8, "wgmma"), (400, 64, 256, 8,
+                                                     "wgmma"),
+                     (400, 40, 256, 8, "wgmma"), (400, 36, 256, 8, "mma"),
+                     (512, 256, 384, 1, "wgmma"), (512, 256, 384, 2,
+                                                   "wgmma"),
+                     (100, 64, 200, 2, "wgmma")]
+
+
+@pytest.mark.parametrize("M,K,N,segments,kernel", RS_LOOPBACK_CASES)
+def test_gemm_rs_loopback_wgmma_items(cuda, M, K, N, segments, kernel):
+    """Each item set against the plain version (2e-2); one device operation
+    a call, the kernel its operands take."""
+    a, b = _overlap_ab(cuda, M + K, M, K, N)
+    _build.reset_counts()
+    got = trs.gemm_rs_loopback(a, b, segments=segments)
+    torch.cuda.synchronize()
+    assert trs.GEMM_RS_LOOPBACK.launches == 1
+    torch.testing.assert_close(got, trs.gemm_rs_loopback_ref(
+        a, b, segments=segments), atol=2e-2, rtol=2e-2)
+    ops = _captured_ops(lambda: trs.gemm_rs_loopback_cuda(
+        a, b, segments=segments))
+    assert len(ops) == 1 and "gemm_rs_loopback_kernel" in ops[0], ops
+    assert ("kernel_wgmma" in ops[0]) == (kernel == "wgmma"), ops
+
+
+@pytest.mark.parametrize("M,K,N,segments", [(4096, 3200, 5120, 8),
+                                            (400, 64, 256, 8),
+                                            (400, 36, 256, 8)])
+def test_gemm_rs_loopback_waits_for_delayed_producers(cuda, M, K, N,
+                                                      segments):
+    """Every product tile held back 1 ms before its flag, behind NaN
+    staging: the folds must wait, so the result is bit-identical to the
+    undelayed one (fused, split and mma.sync items)."""
+    a, b = _overlap_ab(cuda, 11, M, K, N)
+    want = trs.gemm_rs_loopback_cuda(a, b, segments=segments)
+    poison = torch.full((segments - 1, M // segments, N), float("nan"),
+                        dtype=torch.bfloat16, device=cuda)
+    got = trs.gemm_rs_loopback_cuda(a, b, segments=segments, staging=poison,
+                                    producer_delay_ns=1_000_000)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.isfinite(poison).all()
+
+
+def test_gemm_rs_loopback_back_to_back_leaves_its_ticket_at_zero(cuda):
+    """100 calls back to back, no host reset and no synchronize between
+    them, on the wgmma (fused and split) and mma.sync items: every result
+    is the first call's bits, and the ticket is 0 after."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    ops = []
+    for i, (M, K, N, segs) in enumerate([(1024, 256, 384, 8),
+                                         (400, 64, 256, 8),
+                                         (400, 36, 256, 8)]):
+        a, b = _overlap_ab(cuda, 60 + i, M, K, N)
+        ops.append(lambda a=a, b=b, s=segs:
+                   trs.gemm_rs_loopback_cuda(a, b, segments=s))
+    firsts = [op() for op in ops]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = [ops[i % 3]() for i in range(100)]
+    torch.cuda.synchronize()
+    assert trs.GEMM_RS_LOOPBACK.launches == 100
+    for i, got in enumerate(outs):
+        assert torch.equal(got, firsts[i % 3]), i
+    dev = firsts[0].device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert int(_signal._ARRIVALS[(dev, stream,
+                                  trs.GEMM_RS_LOOPBACK.name)][0]) == 0

@@ -208,7 +208,8 @@ struct WgPath {
     const int rows = g.world * g.m;
     if (threadIdx.x == 0) wg::fence_proxy_async();  // then TMA reads S
     wg::Acc<BM, BN> acc;
-    wg::mainloop<BM, BN>(ta, tb, plane, m0, n0, g.K, rows, sm, it, acc);
+    wg::mainloop<BM, BN>(ta, tb, plane, plane, m0, n0, g.K, rows, sm, it,
+                         acc);
     T* Cp = C + (size_t)plane * rows * g.cols;
     const bool pairs = g.cols % 2 == 0;
     wg::for_each_pair<BM, BN>(acc, m0, n0, [&](int r, int c, float x0,

@@ -51,7 +51,7 @@
 
 namespace {
 
-TDT_RS_KERNELS(gemm_rs)
+TDT_RS_KERNELS(gemm_rs, false)
 
 }  // namespace
 

@@ -57,9 +57,25 @@
 // (r, e, row tile, column tile), rank by rank and expert by expert, remote
 // segments first, then the fold items (d, e, row tile, column tile).
 //
+// The loopback (gemm_rs_loopback.cu, one card's GEMM-RS arm) is one owner
+// of a world-S call: the S sources are A's S row segments of m rows, each
+// read as a plane of (m, k), one B serves every source, and only owner 0
+// folds (out = source 0's f32 product + the bf16 pushes of 1 .. S - 1, in
+// that order). It runs the same items (fused where m is a multiple of
+// BM, else split; the gemm_tile.cuh items where TMA cannot read), with
+// staging (S - 1, m, N) and, split, own (m, N) f32; fused, its tickets go
+// rank by rank (in groups measured ~5% more device time at bench.py's
+// shape on an H100 80GB HBM3 at 700.00 W).
+//
 // A product tile never waits, a fold waits only on smaller tickets, and a
 // block takes a ticket only while it runs, so every flag a fold waits on
 // belongs to a running block: no deadlock, whatever the dispatch order.
+// Each block takes one ticket past the work; in the loopback's kernels the
+// block that takes the last of them leaves the ticket at 0 (gemm_tile.cuh
+// take_ticket), so a ticket kept between calls (kernels/_signal.py
+// arrivals) needs no memset. Whether a kernel is the loopback's is one
+// template argument (LOOPBACK), stated once in TDT_RS_KERNELS: the
+// multi-rank kernels fold its branches away.
 // delay_ns holds every product tile back before it releases its flag (a
 // test of the waits: the result must not change).
 #pragma once
@@ -135,6 +151,47 @@ inline bool make_geometry(long long world, long long E, long long M,
   return total <= INT32_MAX;
 }
 
+// The geometry of a loopback call: S sources of m rows (A (S m, k)), B (k,
+// N), out (m, N); false where it does not fit the int indices (or K is 0
+// on the wgmma items, which TMA cannot read).
+inline bool make_loopback_geometry(long long S, long long m, long long k,
+                                   long long N, int dtype, bool wgmma,
+                                   Geometry* g) {
+  if (S < 1 || m <= 0 || k < 0 || (wgmma && k == 0) || N <= 0 ||
+      S * m > INT32_MAX || k > INT32_MAX || N > INT32_MAX)
+    return false;
+  const int tm = dtype == kF32 ? TileOf<float>::M : BM;
+  const int tn = dtype == kF32 ? TileOf<float>::N : BN;
+  g->world = (int)S;
+  g->E = 1;
+  g->M = g->m = (int)m;
+  g->k = (int)k;
+  g->N = (int)N;
+  g->tiles_m = g->fold_m = (int)((m + tm - 1) / tm);
+  g->tiles_n = (int)((N + tn - 1) / tn);
+  g->fused = wgmma && m % BM == 0;
+  g->grouped = 0;
+  // fused: S - 1 sources' products and the folds; split: every source's
+  // products (source 0's into own), then the folds.
+  const long long total =
+      (g->fused ? S * g->tiles_m : S * g->tiles_m + g->fold_m) *
+      (long long)g->tiles_n;
+  g->total = (int)total;
+  return total <= INT32_MAX;
+}
+
+// The block's next ticket. The loopback's ticket persists: with g.total
+// items and gridDim.x blocks, each taking tickets until one is past the
+// work, the block that takes the last one leaves it at 0. The multi-rank
+// calls' ticket the host zeroes.
+template <bool LOOPBACK>
+__device__ __forceinline__ int next_ticket(int* ticket, const Geometry& g) {
+  if constexpr (LOOPBACK)
+    return gemm::take_ticket(ticket, g.total + (int)gridDim.x - 1);
+  else
+    return gemm::take_ticket(ticket);
+}
+
 // --- the wgmma items (bf16 that TMA reads) ---------------------------------
 
 // One item: a product tile (rank r = src, row tile `row` of its (M, N)
@@ -145,6 +202,7 @@ struct Item {
 };
 
 // Ticket t's item in the order the header describes.
+template <bool LOOPBACK>
 __device__ __forceinline__ Item item_of(int t, const Geometry& g) {
   const int W = g.world, TM = g.tiles_m, TN = g.tiles_n, FM = g.fold_m;
   if (g.grouped) {  // output tile (e, nt, mt): W - 1 products, its fold
@@ -153,6 +211,15 @@ __device__ __forceinline__ Item item_of(int t, const Geometry& g) {
     const int d = mt / FM;
     if (s == W - 1) return Item{true, d, e, mt % FM, nt};
     return Item{false, s + (s >= d), e, mt, nt};
+  }
+  if (LOOPBACK && g.fused) {  // sources 1 .. S - 1, then the folds
+    const int P = (W - 1) * g.E * TM * TN;
+    if (t < P) {
+      const int re = t / (TM * TN);
+      return Item{false, 1 + re / g.E, re % g.E, (t / TN) % TM, t % TN};
+    }
+    t -= P;
+    return Item{true, 0, t / (FM * TN), (t / TN) % FM, t % TN};
   }
   if (g.fused) {  // rank by rank: every remote product tile, then the folds
     const int RT = TM - FM;  // remote row tiles of one (rank, expert)
@@ -166,8 +233,9 @@ __device__ __forceinline__ Item item_of(int t, const Geometry& g) {
     const int de = t / (FM * TN);
     return Item{true, de / g.E, de % g.E, (t / TN) % FM, t % TN};
   }
-  // split: per (e, nt), every rank's product tiles, then the folds
-  const int per = W * (TM + FM);
+  // split: per (e, nt), every rank's product tiles, then the folds (the
+  // loopback's owner's alone)
+  const int per = LOOPBACK ? W * TM + FM : W * (TM + FM);
   const int grp = t / per, s = t % per;
   const int e = grp / TN, nt = grp % TN;
   if (s < W * TM) return Item{false, s / TM, e, s % TM, nt};
@@ -211,8 +279,10 @@ __device__ __forceinline__ void load8(const float* p, float* f, bool cg) {
 constexpr int FOLD_SRCS = 8;
 
 // The items of a wgmma call: A from map ta ((k, M, world E)), B from map
-// tb ((N, k, world E)). Every thread of the block (wg::THREADS) calls it,
-// with SMEM_BYTES of dynamic shared memory at raw.
+// tb ((N, k, world E); the loopback's (N, k, 1)). Every thread of the
+// block (wg::THREADS) calls it, with SMEM_BYTES of dynamic shared memory
+// at raw.
+template <bool LOOPBACK>
 __device__ __forceinline__ void run_wg_items(
     const CUtensorMap* ta, const CUtensorMap* tb, bf16* __restrict__ out,
     bf16* staging, float* own, uint32_t* flags, int* ticket, uint32_t epoch,
@@ -228,18 +298,20 @@ __device__ __forceinline__ void run_wg_items(
   const int W = g.world, tid = threadIdx.x;
   const size_t seg = (size_t)g.m * g.N;  // elements of one segment
   constexpr int V = BN / 8;              // 16-byte vectors of a tile row
-  // The tile at (m0, n0) of plane `plane` into `tile`, every thread.
+  // The tile at (m0, n0) of A's plane `plane` (and B's, or the one B of
+  // the loopback) into `tile`, every thread.
   auto product = [&](int plane, int m0, int n0) {
     // The ring's last generic accesses precede the TMA writes into it.
     if (tid == 0) wg::fence_proxy_async();
     wg::Acc<BM, BN> acc;
-    wg::mainloop<BM, BN, RING>(ta, tb, plane, m0, n0, g.k, g.M, sm, it, acc);
+    wg::mainloop<BM, BN, RING>(ta, tb, plane, LOOPBACK ? 0 : plane, m0, n0,
+                               g.k, g.M, sm, it, acc);
     stage(acc, tile);
   };
   for (;;) {
-    const int t = gemm::take_ticket(ticket);
+    const int t = next_ticket<LOOPBACK>(ticket, g);
     if (t >= g.total) return;
-    const Item item = item_of(t, g);
+    const Item item = item_of<LOOPBACK>(t, g);
     const int e = item.e, nt = item.nt, n0 = nt * BN;
     if (!item.fold) {
       const int src = item.r, plane = src * g.E + e, m0 = item.row * BM;
@@ -342,7 +414,7 @@ __device__ __forceinline__ void run_wg_items(
 
 // --- the gemm_tile.cuh items (f32, and bf16 rows TMA cannot read) ----------
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool LOOPBACK>
 __device__ __forceinline__ void run_items(const T* __restrict__ A,
                                           const T* __restrict__ B,
                                           T* __restrict__ out, T* staging,
@@ -358,7 +430,7 @@ __device__ __forceinline__ void run_items(const T* __restrict__ A,
   const int per_fold = g.fold_m * g.tiles_n;
   const size_t seg = (size_t)g.m * g.N;  // elements of one segment
   for (;;) {
-    const int t = gemm::take_ticket(ticket);
+    const int t = next_ticket<LOOPBACK>(ticket, g);
     if (t >= g.total) return;
     if (t < products) {
       const int re = t / per_expert;  // r E + e
@@ -367,7 +439,8 @@ __device__ __forceinline__ void run_items(const T* __restrict__ A,
       const int mt = (((r + 1) % W) * g.m / Tile::M + j) % g.tiles_m;
       const int m0 = mt * Tile::M, n0 = nt * Tile::N;
       gemm::product_tile<T, VEC>(
-          A + (size_t)re * g.M * g.k, g.k, B + (size_t)re * g.k * g.N, g.N,
+          A + (size_t)re * g.M * g.k, g.k,
+          B + (size_t)(LOOPBACK ? e : re) * g.k * g.N, g.N,
           g.M, g.N, g.k, m0, n0, smem, [&](int gr, int gc, float v) {
             if (gr >= g.M || gc >= g.N) return;
             const int dst = gr / g.m;
@@ -457,18 +530,20 @@ using Kernel = void (*)(const T*, const T*, T*, T*, float*, uint32_t*, int*,
                         uint32_t, Geometry, unsigned long long);
 
 // The persistent grid of `kernel` (threads, smem bytes of dynamic shared
-// memory) over g.total items on stream s, the ticket zeroed first.
-template <class K, class... Args>
+// memory, the limit raised once) over g.total items on stream s, the
+// ticket zeroed first unless it is a persistent one that the kernel left
+// at 0 (the loopback's).
+template <bool LOOPBACK, class K, class... Args>
 cudaError_t launch_grid(K kernel, int threads, int smem, const Geometry& g,
                         void* ticket, cudaStream_t s, Args... args) {
   cudaError_t err = cudaSuccess;
   if (smem > 0)
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    err = gemm::allow_smem(reinterpret_cast<const void*>(kernel), smem);
   unsigned blocks = 0;
   if (err == cudaSuccess)
     err = gemm::persistent_blocks(kernel, threads, smem, g.total, &blocks);
-  if (err == cudaSuccess) err = cudaMemsetAsync(ticket, 0, sizeof(int), s);
+  if (err == cudaSuccess && !LOOPBACK)
+    err = cudaMemsetAsync(ticket, 0, sizeof(int), s);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, threads, smem, s>>>(args...);
   return cudaGetLastError();
@@ -478,8 +553,10 @@ cudaError_t launch_grid(K kernel, int threads, int smem, const Geometry& g,
 // m is a multiple of BM), every other call on the gemm_tile.cuh kernels
 // (the 16-byte variant where k, N and the pointers allow it; own needed).
 // a (world, E, M, k), b (world, E, k, N), out (world, E, m, N), staging
-// (world, world - 1, E, m, N), own (world, E, m, N) f32.
-template <class WgKernel>
+// (world, world - 1, E, m, N), own (world, E, m, N) f32. The loopback's
+// (E 1): a (world m, k) in world segments of M = m rows, b (k, N), out (m,
+// N), staging (world - 1, m, N), own (m, N) f32.
+template <bool LOOPBACK, class WgKernel>
 cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
                    Kernel<bf16> bf16_plain, Kernel<float> f32_vec,
                    Kernel<float> f32_plain, const void* a, const void* b,
@@ -492,7 +569,9 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
   Geometry g;
   const bool wgmma = dtype == kBF16 && tma;
   if ((dtype != kF32 && dtype != kBF16) || !staging ||
-      !make_geometry(world, E, M, k, N, dtype, wgmma, &g) ||
+      !(LOOPBACK ? E == 1 && make_loopback_geometry(world, M, k, N, dtype,
+                                                    wgmma, &g)
+                 : make_geometry(world, E, M, k, N, dtype, wgmma, &g)) ||
       (!g.fused && !own))
     return cudaErrorInvalidValue;
   uint32_t* fl = static_cast<uint32_t*>(flags);
@@ -502,30 +581,30 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
     if (k % 8 || N % 8 || !aligned16(a) || !aligned16(b) ||
         !aligned16(out) || !aligned16(staging) || (own && !aligned16(own)) ||
         !wg::encode_a(&ta, a, k, M, world * E, BM) ||
-        !wg::encode_b(&tb, b, N, k, world * E))
+        !wg::encode_b(&tb, b, N, k, LOOPBACK ? E : world * E))
       return cudaErrorInvalidValue;
-    return launch_grid(wg_kernel, wg::THREADS, SMEM_BYTES, g, ticket, s, ta,
-                       tb, static_cast<bf16*>(out),
-                       static_cast<bf16*>(staging), static_cast<float*>(own),
-                       fl, tk, epoch, g, delay_ns);
+    return launch_grid<LOOPBACK>(
+        wg_kernel, wg::THREADS, SMEM_BYTES, g, ticket, s, ta, tb,
+        static_cast<bf16*>(out), static_cast<bf16*>(staging),
+        static_cast<float*>(own), fl, tk, epoch, g, delay_ns);
   }
   const bool vec = k % 8 == 0 && N % 8 == 0 && aligned16(a) &&
                    aligned16(b) && aligned16(out) && aligned16(staging) &&
                    aligned16(own);
   if (dtype == kF32) {
     using Tile = TileOf<float>;
-    return launch_grid(vec ? f32_vec : f32_plain, Tile::threads, Tile::smem,
-                       g, ticket, s, static_cast<const float*>(a),
-                       static_cast<const float*>(b), static_cast<float*>(out),
-                       static_cast<float*>(staging),
-                       static_cast<float*>(own), fl, tk, epoch, g, delay_ns);
+    return launch_grid<LOOPBACK>(
+        vec ? f32_vec : f32_plain, Tile::threads, Tile::smem, g, ticket, s,
+        static_cast<const float*>(a), static_cast<const float*>(b),
+        static_cast<float*>(out), static_cast<float*>(staging),
+        static_cast<float*>(own), fl, tk, epoch, g, delay_ns);
   }
   using Tile = TileOf<bf16>;
-  return launch_grid(vec ? bf16_vec : bf16_plain, Tile::threads, Tile::smem,
-                     g, ticket, s, static_cast<const bf16*>(a),
-                     static_cast<const bf16*>(b), static_cast<bf16*>(out),
-                     static_cast<bf16*>(staging), static_cast<float*>(own),
-                     fl, tk, epoch, g, delay_ns);
+  return launch_grid<LOOPBACK>(
+      vec ? bf16_vec : bf16_plain, Tile::threads, Tile::smem, g, ticket, s,
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
+      static_cast<bf16*>(out), static_cast<bf16*>(staging),
+      static_cast<float*>(own), fl, tk, epoch, g, delay_ns);
 }
 
 }  // namespace rs
@@ -533,8 +612,8 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
 
 // The kernels of a .cu file that runs these items, named after it (the
 // profiler finds a kernel by its name): NAME_kernel_wgmma and
-// NAME_kernel<T, VEC>.
-#define TDT_RS_KERNELS(NAME)                                                  \
+// NAME_kernel<T, VEC>, and NAME_launch; LOOPBACK true for the loopback's.
+#define TDT_RS_KERNELS(NAME, LOOPBACK)                                        \
   __global__ void __launch_bounds__(tdt::wg::THREADS, tdt::rs::BLOCKS)        \
       NAME##_kernel_wgmma(const __grid_constant__ CUtensorMap ta,             \
                           const __grid_constant__ CUtensorMap tb,             \
@@ -543,8 +622,8 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
                           uint32_t epoch, tdt::rs::Geometry g,                \
                           unsigned long long delay_ns) {                      \
     extern __shared__ __align__(16) unsigned char smem[];                     \
-    tdt::rs::run_wg_items(&ta, &tb, out, staging, own, flags, ticket, epoch,  \
-                          g, delay_ns, smem);                                 \
+    tdt::rs::run_wg_items<LOOPBACK>(&ta, &tb, out, staging, own, flags,       \
+                                    ticket, epoch, g, delay_ns, smem);        \
   }                                                                           \
   template <typename T, bool VEC>                                             \
   __global__ void __launch_bounds__(tdt::gemm::TileOf<T>::threads)            \
@@ -553,8 +632,8 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
                     uint32_t* flags, int* ticket, uint32_t epoch,             \
                     tdt::rs::Geometry g, unsigned long long delay_ns) {       \
     extern __shared__ __align__(16) unsigned char smem[];                     \
-    tdt::rs::run_items<T, VEC>(A, B, out, staging, own, flags, ticket, epoch, \
-                               g, delay_ns, smem);                            \
+    tdt::rs::run_items<T, VEC, LOOPBACK>(A, B, out, staging, own, flags,      \
+                                         ticket, epoch, g, delay_ns, smem);   \
   }                                                                           \
   inline cudaError_t NAME##_launch(                                           \
       const void* a, const void* b, void* out, void* staging, void* own,      \
@@ -562,7 +641,7 @@ cudaError_t launch(WgKernel wg_kernel, Kernel<bf16> bf16_vec,
       long long E, long long M, long long k, long long N, int dtype, int tma, \
       unsigned long long delay_ns, cudaStream_t s) {                          \
     using tdt::gemm::bf16;                                                    \
-    return tdt::rs::launch(                                                   \
+    return tdt::rs::launch<LOOPBACK>(                                         \
         NAME##_kernel_wgmma, NAME##_kernel<bf16, true>,                       \
         NAME##_kernel<bf16, false>, NAME##_kernel<float, true>,               \
         NAME##_kernel<float, false>, a, b, out, staging, own, flags, ticket,  \

@@ -352,6 +352,24 @@ __device__ __forceinline__ int take_ticket(int* counter) {
   return t;
 }
 
+// The same, and the block that takes ticket `last` leaves the counter at 0
+// for the next launch: every block takes tickets until one is past the
+// work, so with W items and B blocks the last ticket taken is W + B - 1.
+// (The reset sits in the taking thread's branch: the same store after the
+// item loop made ptxas spill and serialise the GEMM-RS loopback's wgmma.)
+__device__ __forceinline__ int take_ticket(int* counter, int last) {
+  __shared__ int s_ticket;
+  if (threadIdx.x == 0) {
+    const int t = atomicAdd(counter, 1);
+    if (t == last) *counter = 0;
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int t = s_ticket;
+  __syncthreads();
+  return t;
+}
+
 // Blocks the current device holds at once of a kernel of `threads` threads
 // and `smem` bytes of dynamic shared memory (SMs x blocks an SM). The
 // answer is cached per (kernel, threads, shared memory, device): the

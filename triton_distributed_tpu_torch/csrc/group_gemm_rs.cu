@@ -52,7 +52,7 @@
 
 namespace {
 
-TDT_RS_KERNELS(group_gemm_rs)
+TDT_RS_KERNELS(group_gemm_rs, false)
 
 }  // namespace
 

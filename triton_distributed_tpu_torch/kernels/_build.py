@@ -43,8 +43,9 @@ P, I64, I32, U32, U64, F32 = (ctypes.c_void_p, ctypes.c_longlong,
 
 # C entry points: name -> argtypes (restype is always int = cudaError_t).
 SIGNATURES = {
-    # a, b, c, M, N, K, dtype (0 fp32, 1 bf16), stream
-    "tdt_matmul": [P, P, P, I64, I64, I64, I32, P],
+    # a, b, c, M, N, K, dtype (0 fp32, 1 bf16), tma (bf16: the
+    # warp-specialised wgmma GEMM), stream
+    "tdt_matmul": [P, P, P, I64, I64, I64, I32, I32, P],
     # q, k, v, o, rows (nullable (3, B) int32: offset, kv_len, q_len),
     # offset, kv_len, q_len, B, L, Hq, Hkv, S, dh,
     # k batch/seq/head strides, scale, dtype, tma (bf16 at head_dim 128:
@@ -74,8 +75,11 @@ SIGNATURES = {
                              I32, U64, P],
     # c, a, b, out, M, n, K, col_start, stream
     "tdt_matmul_tail_into": [P, P, P, P, I64, I64, I64, I64, P],
-    # a, b, out, staging, flags, ticket, epoch, segments, m, N, K, stream
-    "tdt_gemm_rs_loopback": [P, P, P, P, P, P, U32, I64, I64, I64, I64, P],
+    # a, b, out, staging, own (f32; null where the owner's product is
+    # folded in place), flags, ticket, epoch, segments, m, N, K, dtype, tma
+    # (bf16: the wgmma tile), producer delay (ns), stream
+    "tdt_gemm_rs_loopback": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64,
+                             I32, I32, U64, P],
     # c, a, b, out, s (nullable f32 scalar), s value, M, N, K, stream
     "tdt_fused_step": [P, P, P, P, P, F32, I64, I64, I64, P],
     # x, staging (null at world 1), out, flags, ticket, epoch, n, chunk

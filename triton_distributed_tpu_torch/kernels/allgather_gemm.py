@@ -76,6 +76,9 @@ STAGE_CHUNK_ROWS = 16
 # library as the JAX package leaves it to XLA.
 SMALL_M = 64
 
+# The warp-specialised GEMM's tile rows (csrc/gemm_ws.cuh BM).
+WS_TILE_M = 128
+
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: ``(M, K) x (K, N)`` in f32, cast to the promoted
@@ -86,7 +89,11 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/matmul.cu`` on CUDA tensors: f32 accumulation, output
-    in the inputs' dtype (bf16 or fp32; both operands the same dtype)."""
+    in the inputs' dtype (bf16 or fp32; both operands the same dtype). bf16
+    whose operands TMA can read (``_build.tma_rows``, K > 0) runs the
+    warp-specialised ``wgmma`` GEMM (``csrc/gemm_ws.cuh``, its tile from
+    ``matmul_tile``), other bf16 the ``mma.sync`` tile, f32 the SIMT tile:
+    one launch, chosen before it."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul shapes {tuple(a.shape)} x {tuple(b.shape)}")
     if not (a.is_cuda and b.is_cuda) or a.device != b.device:
@@ -101,12 +108,23 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return c
+    code = _build.dtype_code(a)
+    tma = (_build.tma_rows((K, N), a, b, c)
+           if a.dtype == torch.bfloat16 and K > 0 else 0)
     err = _build.lib().tdt_matmul(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-        _build.dtype_code(a), _build.stream_ptr(a))
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K, code, tma,
+        _build.stream_ptr(a))
     _build.check(err, "tdt_matmul")
     MATMUL.launches += 1
     return c
+
+
+def matmul_tile(M: int, N: int, sms: int) -> tuple[int, int]:
+    """The warp-specialised GEMM's tile for an (M, N) output on a card of
+    ``sms`` SMs (``csrc/gemm_ws.cuh`` ``tile_n``): 128 x 256 where those
+    tiles give every SM one at least, else 128 x 128."""
+    wide = -(-M // WS_TILE_M) * -(-N // 256)
+    return WS_TILE_M, (256 if wide >= sms else 128)
 
 
 def ag_gemm_single_chip(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

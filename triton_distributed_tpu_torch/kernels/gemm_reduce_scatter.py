@@ -5,7 +5,10 @@ at world 1 ``gemm_rs_device`` (:190) is the single-card matmul.
 ``gemm_rs_loopback`` (:330) runs on ``csrc/gemm_rs_loopback.cu``: every
 row segment's partial product, the remote ones pushed tile by tile through
 a staging buffer with a flag per tile, folded into the own segment in a
-fixed order.
+fixed order, as the items of ``csrc/gemm_rs.cuh`` for one owner of a
+world-S call. Its staging is a persistent workspace and its ticket a
+persistent arrival cell that the kernel leaves at 0: a call allocates only
+its output.
 
 At world > 1 the ranks are simulated on one card (``runtime/mesh.py``):
 ``gemm_rs_device`` takes every rank's shards stacked, a (world, M, k_local)
@@ -32,6 +35,7 @@ from triton_distributed_tpu_torch.kernels.allgather_gemm import (
     ag_gemm_single_chip,
 )
 from triton_distributed_tpu_torch.runtime.mesh import World
+from triton_distributed_tpu_torch.runtime.symm import get_scratch
 
 GEMM_RS_LOOPBACK = _build.register(
     "gemm_rs_loopback",
@@ -235,28 +239,60 @@ def gemm_rs_loopback_ref(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def gemm_rs_loopback_cuda(a: torch.Tensor, b: torch.Tensor, *,
-                          segments: int) -> torch.Tensor:
-    """Launch ``csrc/gemm_rs_loopback.cu`` (bf16) on the current stream:
-    a persistent grid no larger than the card holds at once, producer tiles
-    handed out before the owner's by an atomic ticket."""
+                          segments: int,
+                          staging: torch.Tensor | None = None,
+                          producer_delay_ns: int = 0) -> torch.Tensor:
+    """Launch ``csrc/gemm_rs_loopback.cu`` (bf16) on the current stream,
+    one device operation: a persistent grid no larger than the card holds
+    at once, every fold after the product tiles it waits on by an atomic
+    ticket (the stream's persistent one, left at 0 by the kernel). The
+    ``wgmma`` items where TMA can read every operand (``_build.tma_rows``),
+    the ``mma.sync`` items otherwise. ``staging`` (segments - 1, m, N)
+    (default: the stream's persistent workspace) and ``producer_delay_ns``
+    (every product tile sleeps that long before it releases its flag) let
+    a test poison the slots and hold the pushes back."""
     _check_bf16_cuda("gemm_rs_loopback_cuda", a, b)
     M, k = a.shape
     n = b.shape[1]
+    if b.shape[0] != k or segments < 1 or M % segments:
+        raise ValueError(f"gemm_rs_loopback_cuda shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}, segments {segments}")
     m = M // segments
-    tiles = -(-m // TILE_M) * -(-n // TILE_N)
-    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
-    staging = torch.empty((max(segments - 1, 1), m, n), dtype=a.dtype,
-                          device=a.device)
-    flags = _signal.flags(a.device, "gemm_rs_loopback",
-                          (segments - 1) * tiles)
-    ticket = torch.empty(1, dtype=torch.int32, device=a.device)
+    dev, stream = a.device, _build.stream_ptr(a)
+    shape = (max(segments - 1, 1), m, n)
+    if staging is None:
+        staging = _workspace("staging", shape, a.dtype, dev, stream)
+    elif (tuple(staging.shape) != shape or staging.dtype != a.dtype
+          or staging.device != dev or not staging.is_contiguous()):
+        raise ValueError(f"staging must be a contiguous {shape} {a.dtype} "
+                         f"tensor on {dev}")
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
+    tma = _build.tma_rows((k, n), a, b, out, staging) if k else 0
+    own = (None if tma and m % TILE_M == 0 else
+           _workspace("own", (m, n), torch.float32, dev, stream))
+    tiles = segments * -(-m // TILE_M) * -(-n // TILE_N)
+    flags = _signal.flags(dev, GEMM_RS_LOOPBACK.name, tiles, stream)
+    ticket = _signal.arrivals(dev, GEMM_RS_LOOPBACK.name, 1, stream)
     err = _build.lib().tdt_gemm_rs_loopback(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), staging.data_ptr(),
-        flags.data_ptr(), ticket.data_ptr(), _signal.next_epoch(a.device),
-        segments, m, n, k, _build.stream_ptr(a))
+        None if own is None else own.data_ptr(), flags.data_ptr(),
+        ticket.data_ptr(), _signal.next_epoch(dev), segments, m, n, k,
+        _build.dtype_code(a), tma, producer_delay_ns, stream)
     _build.check(err, "tdt_gemm_rs_loopback")
     GEMM_RS_LOOPBACK.launches += 1
     return out
+
+
+def _workspace(part: str, shape, dtype, device, stream) -> torch.Tensor:
+    """The loopback's persistent scratch ``part`` of ``shape`` on this
+    stream (``runtime/symm.py`` ``get_scratch``): grown on demand, never
+    zeroed (every element the kernel reads it wrote first in the call)."""
+    numel = 1
+    for d in shape:
+        numel *= d
+    ws = get_scratch(f"{GEMM_RS_LOOPBACK.name}:{part}", numel, dtype,
+                     world=1, device=device, stream=stream)
+    return ws.array[0, :numel].view(shape)
 
 
 def gemm_rs_loopback(a: torch.Tensor, b: torch.Tensor, *, segments: int = 8,
