@@ -98,6 +98,9 @@ script exits non-zero without its result line:
    bit-identical to its plain version at bench.py's (128, 5,120) bf16 at
    world 8 (== 8 x), at (1,000, 384) f32 at world 3, and with every
    producer held back 1 ms behind NaN staging (every slot then holds x);
+   one call captured in a CUDA graph and replayed 100 times on fresh
+   inputs, and 100 calls back to back over both shapes, each bit for bit,
+   every arrival cell 0 after, one device operation a call;
    the EP all-to-all loopback at bench.py's dispatch shape (fp8 tokens,
    f32 scales, full occupancy) and at ragged counts with chunks of 8, NaN
    past every count, rows below the counts byte-identical, under
@@ -108,7 +111,8 @@ script exits non-zero without its result line:
    reset (the M = 128 ar MLP: matmul 2, all-reduce 1; its
    no-communication twin: matmul 2; the ``torch.matmul`` twin: none; the
    a2a arm: 1; the tutorial: 1), the times (kernel, plain, library call,
-   bound; the a2a's pieces against one item per chunk) and bench.py's
+   bound; the all-reduce loopback's bars against ``x.mul(8)``, reported;
+   the a2a's pieces against one item per chunk) and bench.py's
    decomposition;
 7. tensor-parallel Qwen3 at world 8 on one card (seeded; the ranks are
    simulated, so the link is bypassed): the multi-rank AG-GEMM, GEMM-RS,
@@ -178,7 +182,10 @@ script exits non-zero without its result line:
    (64 query heads, 8 kv heads, dh 128), bf16: the ring and direct-push
    allgathers (``csrc/ring_ag.cu``, ``a2a_ag.cu``) bit for bit their plain
    version at the TP = 8 activations (8, 1,024, 5,120) and (8, 16, 5,120),
-   also with 1 ms-delayed producers behind a NaN output; the LL allgather
+   also with 1 ms-delayed producers behind a NaN output, and the ring
+   captured in a CUDA graph (replayed 100 times on fresh inputs) and 100
+   calls back to back over both shapes, each bit for bit, every arrival
+   cell 0 after, one device operation a call; the LL allgather
    (``csrc/ll_allgather.cu``) over five epochs and a restart on one
    NaN-poisoned staging, bit for bit, the other parity untouched, and 100
    calls back to back after which its ticket and flags are 0; then the
@@ -309,6 +316,13 @@ TUTORIAL_SHAPE, TUTORIAL_CHUNK = (8, 16, 128), 4
 LONG_RUN_SHAPE, LONG_RUN_CHUNK = (8, 256 * 64, 128), 64
 ODD_RANK_DELAY_NS = 50_000
 COLLECTIVE_KERNELS = ("oneshot_ar_loopback", "a2a_loopback", "notify_wait")
+# Calls of a captured CUDA graph replayed, and eager calls back to back, in
+# the self-resetting collectives' checks (phases 6 and 10).
+REPLAYS = 100
+# The all-reduce loopback's bars at bench.py's shape: events at most this
+# multiple of x.mul(8) in the same run, and its device time at most this
+# (reported, not gated).
+AR_LOOPBACK_BAR, AR_LOOPBACK_DEVICE_BAR_MS = 1.5, 0.010
 
 # Phase 7: tensor-parallel Qwen3 at world 8 on one card. The kernels at
 # bench.py's Qwen3-32B TP=8 shapes with all 8 ranks: AG-GEMM a (8, 512,
@@ -385,6 +399,10 @@ SP_M = 4096
 SP_GOLDEN_HEADS = (0, 37)
 SP_LSE_M = 512
 SP_KERNELS = ("ring_ag", "a2a_ag", "ll_allgather", "sp_ag_attn")
+# The ring allgather's bars at the decode shape: events at most this
+# multiple of the library's copy in the same run, device time at most this
+# (reported, not gated).
+RING_DECODE_BAR, RING_DECODE_DEVICE_BAR_MS = 1.6, 0.012
 NOT_SERVED = dict.fromkeys(OVERLAP_KERNELS + COLLECTIVE_KERNELS + TP_KERNELS
                            + EP_KERNELS + MT_KERNELS + SP_KERNELS, 0)
 
@@ -720,6 +738,44 @@ def one_wgmma_op(label: str, kernel: str, fn) -> None:
                              f"{kernel}")
     say(f"{label}: one device operation a call, {kernel} (its captured "
         f"CUDA graph)")
+
+
+def graph_replays(label: str, fn, x, fresh, ref, n: int = REPLAYS) -> int:
+    """One call fn(x) captured into a CUDA graph (on a side stream that ran
+    it once first, so its plan, its arrival cells and its scratch exist)
+    and replayed n times, fresh(i) copied into x before replay i: every
+    result must be ref(x)'s bits. Returns the side stream's handle, whose
+    arrival cells the caller checks."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x)
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(x)
+    for i in range(n):
+        x.copy_(fresh(i))
+        graph.replay()
+        if not torch.equal(out, ref(x)):
+            raise AssertionError(f"{label}: replay {i} of {n} of a captured "
+                                 f"call differs from the plain version")
+    torch.cuda.synchronize()
+    return side.cuda_stream
+
+
+def cells_at_zero(label: str, signal, name: str, streams) -> None:
+    """Every arrival cell of ``name`` on each stream (handles) exists and
+    is 0."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for stream in streams:
+        cells = signal._ARRIVALS.get((dev, stream, name))
+        if cells is None:
+            raise AssertionError(f"{label}: no arrival cells of {name} on "
+                                 f"stream {stream}")
+        if cells.any():
+            raise AssertionError(f"{label}: {int(cells.count_nonzero())} "
+                                 f"arrival cells of {name} are not 0")
 
 
 # The wgmma kernels of the dense flash prefill (bf16 at head_dim 128) and
@@ -2513,6 +2569,48 @@ def queue_after(x, chunk_rows):
     return chunks[:, [n - 1 - (n - 1 - s) % 2 for s in range(2)]]
 
 
+def loopback_self_reset(tar, gen, partial, xf):
+    """The all-reduce loopback with no host reset: one call at bench.py's
+    shape captured in a CUDA graph and replayed REPLAYS times on fresh
+    inputs, then REPLAYS eager calls back to back alternating that shape
+    (world 8, bf16) and the ragged f32 one (world 3), every result the
+    plain version's bits and every arrival cell 0 after; one call is one
+    device operation, the kernel (its captured graph)."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    name = tar.ONESHOT_AR_LOOPBACK.name
+    side = graph_replays(
+        "phase 6: oneshot_ar_loopback",
+        lambda t: tar.oneshot_ar_loopback(t, world=AR_WORLD),
+        partial.clone(), lambda i: randn(gen, *partial.shape),
+        lambda t: tar.oneshot_ar_loopback_ref(t, world=AR_WORLD))
+    cases = [(partial, AR_WORLD), (xf, 3)]
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(REPLAYS):
+        t, world = cases[i % 2]
+        outs.append(tar.oneshot_ar_loopback(t, world=world))
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        t, world = cases[i % 2]
+        if not torch.equal(got, tar.oneshot_ar_loopback_ref(t, world=world)):
+            raise AssertionError(f"phase 6: oneshot_ar_loopback call {i} of "
+                                 f"{REPLAYS} back to back differs from the "
+                                 f"plain version")
+    cells_at_zero("phase 6: oneshot_ar_loopback", _signal, name,
+                  (side, torch.cuda.current_stream().cuda_stream))
+    ops = captured_ops(lambda: tar.oneshot_ar_loopback(partial,
+                                                       world=AR_WORLD))
+    if len(ops) != 1 or "ar_loopback_kernel" not in ops[0]:
+        raise AssertionError(f"phase 6: an oneshot_ar_loopback call "
+                             f"enqueued {ops}, not one launch")
+    say(f"phase 6: oneshot_ar_loopback: a captured call replayed {REPLAYS} "
+        f"times on fresh inputs and {REPLAYS} eager calls back to back "
+        f"((128, 5120) bf16 world 8 and (1000, 384) f32 world 3 in turns), "
+        f"no host reset: every result bit-identical to the plain version, "
+        f"every arrival cell 0 after; one call's captured graph: {ops}")
+
+
 def phase_collectives(gen, kernels, card):
     """Phase 6: returns (launches, max abs errors, times) of the three
     collective kernels."""
@@ -2565,6 +2663,7 @@ def phase_collectives(gen, kernels, card):
     say(f"phase 6: oneshot_ar_loopback with every producer held back 1 ms "
         f"behind NaN staging: call took {t0.elapsed_time(t1):.3f} ms, "
         f"result bit-identical to the undelayed run, every slot == x")
+    loopback_self_reset(tar, gen, partial, xf)
     del staging, delayed, undelayed, xf
 
     full = a2a_inputs(gen, [A2A_CAP] * A2A_WORLD)
@@ -2653,13 +2752,22 @@ def phase_collectives(gen, kernels, card):
     t_d = kernel_device_ms(lambda: tar.oneshot_ar_loopback_cuda(
         partial, world=AR_WORLD), "ar_loopback_kernel")
     t_l = timer(lambda: partial.mul(AR_WORLD), reps=50)
+    t_ld = call_device_ms(lambda: partial.mul(AR_WORLD))
     t_b, by = bound_ms(0, pm.oneshot_ar_loopback_bytes(nbytes))
+    b_k = b2b_ms(lambda: tar.oneshot_ar_loopback(partial, world=AR_WORLD))
+    b_l = b2b_ms(lambda: partial.mul(AR_WORLD))
     rows["oneshot_ar_loopback"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                       bound_ms=t_b, bound_by=by)
+                                       bound_ms=t_b, bound_by=by, b2b_ms=b_k,
+                                       library_b2b_ms=b_l)
+    met = (t_k / t_l <= AR_LOOPBACK_BAR
+           and t_d <= AR_LOOPBACK_DEVICE_BAR_MS)
     say(f"phase 6: oneshot_ar_loopback (128, 5120) bf16 world 8: kernel "
         f"{t_k:.4f} ms (device alone {t_d:.4f}), plain {t_p:.4f} ms, "
-        f"x.mul(8) (the same bits) {t_l:.4f} ms, bound {t_b:.4f} ms ({by}) "
-        f"[{card}]")
+        f"x.mul(8) (the same bits) {t_l:.4f} ms (device alone {t_ld:.4f}), "
+        f"bound {t_b:.4f} ms ({by}); events / library {t_k / t_l:.3f} (bar "
+        f"<= {AR_LOOPBACK_BAR}), device bar <= {AR_LOOPBACK_DEVICE_BAR_MS} "
+        f"ms: {'met' if met else 'missed'}; host clock back to back, per "
+        f"call: kernel {b_k:.4f} ms, x.mul(8) {b_l:.4f} ms [{card}]")
 
     a2a_rows = [A2A_HIDDEN, A2A_SCALE_COLS * 4]
     low = a2a_inputs(gen, [A2A_LOW_COUNT] * A2A_WORLD)
@@ -3902,6 +4010,48 @@ def sp_check_ag(tag, label, x, err):
         del got, poison, slow
 
 
+def ring_self_reset(tag, gen, xs):
+    """The ring allgather with no host reset: one call at the decode shape
+    captured in a CUDA graph and replayed REPLAYS times on fresh inputs,
+    then REPLAYS eager calls back to back alternating the decode and
+    prefill shapes (the prefill results compared on the card as they come,
+    so no two are held at once), every result the plain version's bits and
+    every arrival cell 0 after; one call is one device operation, the
+    kernel (its captured graph)."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    dec, pre = xs["decode"], xs["prefill"]
+    side = graph_replays("phase 10: ring_ag", tag.ring_all_gather_cuda,
+                         dec.clone(), lambda i: randn(gen, *dec.shape),
+                         tag.all_gather_ref)
+    want = {"decode": tag.all_gather_ref(dec),
+            "prefill": tag.all_gather_ref(pre)}
+    torch.cuda.synchronize()
+    same = []
+    for i in range(REPLAYS):
+        label = ("decode", "prefill")[i % 2]
+        got = tag.ring_all_gather_cuda(xs[label])
+        same.append((got == want[label]).all())
+        del got
+    torch.cuda.synchronize()
+    bad = [i for i, ok in enumerate(same) if not bool(ok)]
+    if bad:
+        raise AssertionError(f"phase 10: ring_ag calls {bad} of {REPLAYS} "
+                             f"back to back differ from the plain version")
+    cells_at_zero("phase 10: ring_ag", _signal, tag.RING_AG.name,
+                  (side, torch.cuda.current_stream().cuda_stream))
+    ops = captured_ops(lambda: tag.ring_all_gather_cuda(dec))
+    if len(ops) != 1 or "ring_ag_kernel" not in ops[0]:
+        raise AssertionError(f"phase 10: a ring_ag call enqueued {ops}, not "
+                             f"one launch")
+    del want
+    say(f"phase 10: ring_ag: a captured call at {tuple(dec.shape)} replayed "
+        f"{REPLAYS} times on fresh inputs and {REPLAYS} eager calls back to "
+        f"back (decode and prefill shapes in turns), no host reset: every "
+        f"result bit-identical to the plain version, every arrival cell 0 "
+        f"after; one call's captured graph: {ops}")
+
+
 def sp_check_ll(tll, gen, err):
     """The LL allgather at the SP decode partial exchange's shape over
     five epochs and a restart on one NaN-poisoned staging: each call bit
@@ -4039,6 +4189,7 @@ def phase_sp(gen, kernels, card):
     xs = {label: randn(gen, w, m, n) for label, (m, n) in SP_AG.items()}
     for label, x in xs.items():
         sp_check_ag(tag, label, x, err)
+    ring_self_reset(tag, gen, xs)
     sp_check_ll(tll, gen, err)
 
     # (b) The path, counts reset just before and read just after.
@@ -4219,14 +4370,25 @@ def phase_sp(gen, kernels, card):
                                          reps=10),
                           library_ms=t_l, bound_ms=t_b, bound_by=by)
         xd = xs["decode"]
-        lib_d = timer(lambda: xd.reshape(1, -1, xd.shape[2]).expand(
-            w, -1, -1).contiguous(), reps=20)
+        lib_call = lambda: xd.reshape(1, -1, xd.shape[2]).expand(
+            w, -1, -1).contiguous()
+        lib_d = timer(lib_call, reps=20)
+        t_k = timer(lambda: run(xd), reps=20)
+        t_d = kernel_device_ms(lambda: run(xd), kern)
+        bar = ""
+        if name == "ring_ag":
+            met = (t_k / lib_d <= RING_DECODE_BAR
+                   and t_d <= RING_DECODE_DEVICE_BAR_MS)
+            bar = (f"; events / library {t_k / lib_d:.3f} (bar <= "
+                   f"{RING_DECODE_BAR}), device bar <= "
+                   f"{RING_DECODE_DEVICE_BAR_MS} ms: "
+                   f"{'met' if met else 'missed'}")
         say(f"phase 10: {name} at the decode shape {tuple(xd.shape)}: kernel "
-            f"{timer(lambda: run(xd), reps=20):.4f} ms, device alone "
-            f"{kernel_device_ms(lambda: run(xd), kern):.4f} ms, library "
-            f"{lib_d:.4f} ms (the same copy), bound "
+            f"{t_k:.4f} ms, device alone {t_d:.4f} ms, library {lib_d:.4f} "
+            f"ms (the same copy; device alone {call_device_ms(lib_call):.4f}"
+            f"), bound "
             f"{bound_ms(0, pm.all_gather_bytes(w, xd[0].numel() * 2))[0]:.4f}"
-            f" ms [{card}]")
+            f" ms{bar} [{card}]")
     xl = randn(gen, w, SP_B * SP_HQ, feat, dtype=torch.float32)
     stg = torch.zeros((w, 2, w - 1, SP_B * SP_HQ, feat), device="cuda")
     epoch = torch.zeros((), dtype=torch.int32, device="cuda")

@@ -2,7 +2,7 @@
 wgmma path, on the CPU: the one-shot chunk plan covers every element once,
 and both kernels' ticket orders hand out every item once and every item a
 waiter depends on before it (the kernels' deadlock argument). The orders
-here are the kernels' own (``item_of`` in ``csrc/oneshot_ar.cu``,
+here are the kernels' own (``item_of`` in ``csrc/oneshot_ar.cuh``,
 ``wg_item_of`` in ``csrc/sp_ag_attn.cu``), whose constants the tests hold
 to the Python ones; the kernels run in ``tests/test_torch_gpu.py`` on the
 card. Also the persistent scratch the serving all-reduce stages into."""
@@ -29,11 +29,12 @@ def _const(name: str, source: str) -> int:
 
 
 def test_python_orders_use_the_kernels_constants():
-    # A round: kThreads threads x kRound 16-byte vectors.
-    assert (_const("kThreads", "oneshot_ar.cu")
-            * _const("kRound", "oneshot_ar.cu") * 16
+    # A round: kThreads threads x kRound 16-byte vectors (the one-shot's
+    # items, shared with the loopback, live in oneshot_ar.cuh).
+    assert (_const("kThreads", "oneshot_ar.cuh")
+            * _const("kRound", "oneshot_ar.cuh") * 16
             == tar.ONESHOT_ROUND_BYTES)
-    assert _const("kLag", "oneshot_ar.cu") == 1   # oneshot_ar_items' default
+    assert _const("kLag", "oneshot_ar.cuh") == 1  # oneshot_ar_items' default
     assert _const("kLookahead", "sp_ag_attn.cu") == tsp.SP_PUSH_LOOKAHEAD
     assert _const("BQ", "attn_wgmma.cuh") == tsp.SP_WGMMA_ROWS
 

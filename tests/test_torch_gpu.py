@@ -6,6 +6,7 @@ machine with an H100 with ``python -m pytest tests/test_torch_gpu.py -m gpu``.
 Tolerances: bf16 output ``atol=rtol=2e-2``; fp32 output ``atol=rtol=1e-4``
 (the kernel sums in another order than the plain version)."""
 
+import functools
 import importlib
 import importlib.util
 import math
@@ -1058,10 +1059,11 @@ def test_all_reduce_kernels_wait_for_delayed_producers(cuda, method):
 
 
 def test_epoch_wrap_leaves_no_stale_flag(cuda):
-    """The epoch counter crosses its wrap (2**31 - 1 -> 1) between calls
-    whose producers are held back 1 ms behind NaN staging: the flags the
-    earlier calls raised near 2**31 are zeroed first, so no fold reads one
-    of them as raised: every result is 8 x and every slot holds x."""
+    """With the epoch counter at its wrap, calls whose producers are held
+    back 1 ms behind NaN staging: the loopback's flags are arrival cells
+    that every call raises to 1 and lowers again, so it takes no epoch and
+    no fold reads a flag of an earlier call as raised: every result is 8 x,
+    every slot holds x, and the cells are 0 after."""
     from triton_distributed_tpu_torch.kernels import _signal
 
     x = _randn(torch.Generator(device=cuda).manual_seed(4), 64, 384,
@@ -1075,7 +1077,9 @@ def test_epoch_wrap_leaves_no_stale_flag(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, 8 * x)
         assert torch.equal(staging, x.expand_as(staging))
-    assert _signal._EPOCH[x.device] == 3   # 2**31 - 1, then 1, 2, 3
+    assert _signal._EPOCH[x.device] == 2 ** 31 - 2   # no epoch taken
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _cells_zero(cuda, "oneshot_ar_loopback", (stream,))
 
 
 # -- the multi-rank EP all-to-all (world simulated ranks on one card) -------
@@ -1539,7 +1543,8 @@ def test_sp_ag_attention_waits_for_delayed_producers(cuda):
 def test_epoch_wrap_across_the_sp_kernels(cuda):
     """The epoch counter crosses its wrap between calls of the ring
     allgather and the SP prefill, producers held back behind NaN: no flag
-    an earlier call raised near 2**31 reads as raised to a later one."""
+    an earlier call raised near 2**31 reads as raised to a later one. The
+    ring takes no epoch (its flags are arrival cells, 0 after a call)."""
     from triton_distributed_tpu_torch.kernels import _signal
 
     gen = torch.Generator(device=cuda).manual_seed(41)
@@ -1547,7 +1552,7 @@ def test_epoch_wrap_across_the_sp_kernels(cuda):
     q, k, v = (_randn(gen, 4, 2, 128, 64, dtype=torch.bfloat16)
                for _ in range(3))
     want_sp = tsp.sp_ag_attention_cuda(q, k, v)[0]
-    _signal._EPOCH[x.device] = 2 ** 31 - 3
+    _signal._EPOCH[x.device] = 2 ** 31 - 2
     for _ in range(2):
         out = torch.full((8, 8 * 64, 256), float("nan"), dtype=x.dtype,
                          device=cuda)
@@ -1560,7 +1565,9 @@ def test_epoch_wrap_across_the_sp_kernels(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got, tag.all_gather_ref(x))
         assert torch.equal(sp, want_sp)
-    assert _signal._EPOCH[x.device] == 2   # 2**31 - 2, 2**31 - 1, 1, 2
+    assert _signal._EPOCH[x.device] == 1   # the prefill's 2**31 - 1, 1
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _cells_zero(cuda, "ring_ag", (stream,))
 
 
 # --- the one-shot all-reduce (one push a source) and the SP wgmma tile ----
@@ -1884,17 +1891,24 @@ def test_ll_allgather_back_to_back_leaves_its_signals_at_zero(cuda):
 # wgmma items -----------------------------------------------------------------
 
 
-def _captured_ops(fn) -> list[str]:
-    """chip_smoke.captured_ops: the device operations one call of fn
-    enqueues, exactly (the call captured into a CUDA graph, never
-    replayed). A call that copies from the host cannot be captured."""
+@functools.lru_cache(maxsize=None)
+def _smoke():
+    """This checkout's chip_smoke.py, for its checks (it imports only torch
+    at its top)."""
     from pathlib import Path
 
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    return smoke.captured_ops(fn)
+    return smoke
+
+
+def _captured_ops(fn) -> list[str]:
+    """chip_smoke.captured_ops: the device operations one call of fn
+    enqueues, exactly (the call captured into a CUDA graph, never
+    replayed). A call that copies from the host cannot be captured."""
+    return _smoke().captured_ops(fn)
 
 
 # (B, L, Hkv, S, offset, kv_len, seq_lens, layout): offsets 0 and 300;
@@ -2157,3 +2171,125 @@ def test_gemm_rs_loopback_back_to_back_leaves_its_ticket_at_zero(cuda):
     stream = torch.cuda.current_stream(dev).cuda_stream
     assert int(_signal._ARRIVALS[(dev, stream,
                                   trs.GEMM_RS_LOOPBACK.name)][0]) == 0
+
+
+# --- the ring allgather and the all-reduce loopback: signals on the card ---
+
+SELF_RESET = {
+    "ring decode": ((8, 16, 5120), torch.bfloat16, None),
+    "ring ragged": ((8, 5, 33), torch.float32, None),
+    "loopback bench": ((128, 5120), torch.bfloat16, 8),
+    "loopback ragged": ((1000, 384), torch.float32, 3),
+}
+
+
+def _self_reset_case(case):
+    shape, dtype, world = SELF_RESET[case]
+    if world is None:
+        return (tag.ring_all_gather_cuda, tag.all_gather_ref,
+                tag.RING_AG.name, "ring_ag_kernel", shape, dtype)
+    return (lambda x: tar.oneshot_ar_loopback_cuda(x, world=world),
+            lambda x: tar.oneshot_ar_loopback_ref(x, world=world),
+            tar.ONESHOT_AR_LOOPBACK.name, "ar_loopback_kernel", shape, dtype)
+
+
+def _cells_zero(cuda, name, streams) -> bool:
+    """Every arrival cell of ``name`` on each stream (handles) exists and
+    is 0."""
+    from triton_distributed_tpu_torch.kernels import _signal
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    keys = [(dev, s, name) for s in streams]
+    assert all(k in _signal._ARRIVALS for k in keys), keys
+    return not any(bool(_signal._ARRIVALS[k].any()) for k in keys)
+
+
+@pytest.mark.parametrize("case", sorted(SELF_RESET))
+def test_captured_call_replays_on_fresh_inputs(cuda, case):
+    """One call captured in a CUDA graph and replayed 100 times, a fresh
+    input copied into the static one before each replay: every result is
+    the plain version's bits (the graph holds no epoch and no memset: the
+    ticket and flags are arrival cells the kernel leaves at 0), the cells
+    are 0 after, and the call is one device operation, the kernel."""
+    run, ref, name, kernel, shape, dtype = _self_reset_case(case)
+    gen = torch.Generator(device=cuda).manual_seed(71)
+    x = _randn(gen, *shape, dtype=dtype)
+    side = _smoke().graph_replays(case, run, x.clone(),
+                                  lambda i: _randn(gen, *shape, dtype=dtype),
+                                  ref)
+    assert _cells_zero(cuda, name,
+                       (side, torch.cuda.current_stream().cuda_stream))
+    ops = _captured_ops(lambda: run(x))
+    assert len(ops) == 1 and kernel in ops[0], ops
+
+
+def test_ring_back_to_back_without_host_reset(cuda):
+    """100 calls back to back on one stream, no host reset and no
+    synchronize between them, alternating phase 10's decode and prefill
+    shapes (each result compared on the card as it comes): every one is
+    the plain version's bits and every arrival cell is 0 after."""
+    gen = torch.Generator(device=cuda).manual_seed(72)
+    xs = [_randn(gen, 8, 16, 5120, dtype=torch.bfloat16),
+          _randn(gen, 8, 1024, 5120, dtype=torch.bfloat16)]
+    wants = [tag.all_gather_ref(x) for x in xs]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    same = []
+    for i in range(100):
+        got = tag.ring_all_gather_cuda(xs[i % 2])
+        same.append((got == wants[i % 2]).all())
+        del got
+    torch.cuda.synchronize()
+    assert tag.RING_AG.launches == 100
+    assert all(bool(ok) for ok in same)
+    assert _cells_zero(cuda, tag.RING_AG.name,
+                       (torch.cuda.current_stream().cuda_stream,))
+
+
+def test_loopback_back_to_back_without_host_reset(cuda):
+    """100 calls back to back on one stream, no host reset and no
+    synchronize between them, alternating bf16 (128, 5120) at world 8 and
+    ragged f32 (1000, 384) at world 3, each on the default staging (the
+    stream's persistent scratch) or a caller's: every result is the plain
+    version's bits, every arrival cell is 0 after, and every staging slot
+    holds x (the pushes landed)."""
+    gen = torch.Generator(device=cuda).manual_seed(73)
+    cases = [(_randn(gen, 128, 5120, dtype=torch.bfloat16), 8),
+             (_randn(gen, 1000, 384, dtype=torch.float32), 3)]
+    given = [torch.full((w - 1, *x.shape), float("nan"), dtype=x.dtype,
+                        device=cuda) for x, w in cases]
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    outs = []
+    for i in range(100):
+        x, world = cases[i % 2]
+        outs.append(tar.oneshot_ar_loopback_cuda(
+            x, world=world, staging=given[i % 2] if i % 4 >= 2 else None))
+    torch.cuda.synchronize()
+    assert tar.ONESHOT_AR_LOOPBACK.launches == 100
+    for i, got in enumerate(outs):
+        x, world = cases[i % 2]
+        assert torch.equal(got, tar.oneshot_ar_loopback_ref(x, world=world))
+    stream = torch.cuda.current_stream().cuda_stream
+    assert _cells_zero(cuda, tar.ONESHOT_AR_LOOPBACK.name, (stream,))
+    for (x, world), st in zip(cases, given):
+        assert torch.equal(st, x.expand_as(st))
+        scratch = tar.loopback_staging(x, world, stream)
+        assert torch.equal(scratch, x.expand_as(scratch))
+
+
+def test_loopback_default_staging_persists(cuda):
+    """Without a staging the pushes land in the stream's persistent scratch:
+    the same storage call after call, grown for a larger call, the result
+    unchanged."""
+    gen = torch.Generator(device=cuda).manual_seed(74)
+    x = _randn(gen, 128, 5120, dtype=torch.bfloat16)
+    big = _randn(gen, 256, 5120, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    got = tar.oneshot_ar_loopback(x, world=8)
+    st = tar.loopback_staging(x, 8, stream)
+    assert torch.equal(got, 8 * x) and torch.equal(st, x.expand_as(st))
+    tar.oneshot_ar_loopback(x, world=8)
+    assert tar.loopback_staging(x, 8, stream).data_ptr() == st.data_ptr()
+    assert torch.equal(tar.oneshot_ar_loopback(big, world=8), 8 * big)
+    assert torch.equal(tar.oneshot_ar_loopback(x, world=8), got)

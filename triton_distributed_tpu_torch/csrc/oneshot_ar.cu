@@ -45,133 +45,19 @@
 //   - One device operation a call: the ticket lives in a persistent buffer
 //     (kernels/_signal.py arrivals) that the last block out leaves at 0; no
 //     cudaMemsetAsync before the launch.
+//   The items (their order, the push and the fold) are oneshot_ar.cuh's,
+//   shared with oneshot_ar_loopback.cu (one owner whose every source is x).
 //   delay_ns holds every push back before its copy (a test of the waits:
 //   the result must not change).
 #include "gemm_tile.cuh"
 #include "language.cuh"
-#include "vec.cuh"
+#include "oneshot_ar.cuh"
 
 namespace {
 
 namespace lang = tdt::lang;
-using tdt::vec::Vec;
-constexpr int kThreads = 256;
-constexpr int kRound = 4;  // 16-byte vectors a thread a round: 16 KB
-constexpr int kGroup = 8;  // sources whose loads are in flight at once
-constexpr int kLag = 1;    // chunks of pushes handed out ahead of a fold
-
-struct Item {
-  bool push;
-  int c, r;  // chunk; the source of a push, the rank of a fold
-};
-
-// The item of ticket t (kernels/allreduce.py oneshot_ar_items): the pushes
-// of chunks 0 .. lag - 1, then for each chunk c the pushes of c + lag (while
-// there is one) and the folds of c.
-__device__ __forceinline__ Item item_of(int t, int W, int nc) {
-  const int lag = min(kLag, nc);
-  if (t < lag * W) return {true, t / W, t % W};
-  const int u = t - lag * W, full = (nc - lag) * 2 * W;
-  if (u < full) {
-    const int g = u / (2 * W), v = u % (2 * W);
-    return v < W ? Item{true, g + lag, v} : Item{false, g, v - W};
-  }
-  return {false, nc - lag + (u - full) / W, (u - full) % W};
-}
-
-__device__ __forceinline__ void st_cg(float* p, float v) { __stcg(p, v); }
-__device__ __forceinline__ void st_cg(__nv_bfloat16* p, __nv_bfloat16 v) {
-  __stcg(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(v));
-}
-
-// Chunk [e0, e0 + len) of x[src] into its slot at every peer d != src.
-template <typename T, bool VEC>
-__device__ __forceinline__ void push(const T* __restrict__ x, T* staging,
-                                     long long n, long long e0,
-                                     long long len, int src, int W) {
-  const int peers = W - 1;
-  auto slot = [&](int d) {
-    return staging + ((size_t)d * peers + src - (src > d)) * n + e0;
-  };
-  const T* from = x + (size_t)src * n + e0;
-  if constexpr (VEC) {
-    constexpr int P = Vec<T>::N;
-    const uint4* s = reinterpret_cast<const uint4*>(from);
-    const long long n16 = len / P;
-    for (long long i = threadIdx.x; i < n16; i += kRound * kThreads) {
-      uint4 v[kRound];
-#pragma unroll
-      for (int u = 0; u < kRound; ++u)
-        if (i + u * kThreads < n16) v[u] = s[i + u * kThreads];
-      for (int d = 0; d < W; ++d) {
-        if (d == src) continue;
-        uint4* to = reinterpret_cast<uint4*>(slot(d));
-#pragma unroll
-        for (int u = 0; u < kRound; ++u)
-          if (i + u * kThreads < n16) __stcg(to + i + u * kThreads, v[u]);
-      }
-    }
-  } else {
-    for (long long e = threadIdx.x; e < len; e += kThreads) {
-      const T v = from[e];
-      for (int d = 0; d < W; ++d)
-        if (d != src) st_cg(slot(d) + e, v);
-    }
-  }
-}
-
-// out[d][e0, e0 + len) = cast(sum over src in rank order), the own term
-// from x, the others from rank d's slots through L2 only.
-template <typename T, bool VEC>
-__device__ __forceinline__ void fold(const T* __restrict__ x,
-                                     const T* staging, T* __restrict__ out,
-                                     long long n, long long e0,
-                                     long long len, int d, int W) {
-  const int peers = W - 1;
-  auto term = [&](int src) {
-    return src == d ? x + (size_t)d * n + e0
-                    : staging + ((size_t)d * peers + src - (src > d)) * n + e0;
-  };
-  T* to = out + (size_t)d * n + e0;
-  if constexpr (VEC) {
-    constexpr int P = Vec<T>::N;
-    for (long long i = threadIdx.x; i < len / P; i += kThreads) {
-      float acc[P];
-      for (int g0 = 0; g0 < W; g0 += kGroup) {
-        uint4 v[kGroup];
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          const int src = g0 + k;
-          if (src < W) {
-            const uint4* p = reinterpret_cast<const uint4*>(term(src)) + i;
-            v[k] = src == d ? *p : __ldcg(p);
-          }
-        }
-#pragma unroll
-        for (int k = 0; k < kGroup; ++k) {
-          if (g0 + k < W) {
-            float f[P];
-            Vec<T>::load(v[k], f);
-#pragma unroll
-            for (int e = 0; e < P; ++e)
-              acc[e] = g0 + k == 0 ? f[e] : acc[e] + f[e];
-          }
-        }
-      }
-      tdt::vec::store_vec(to + i * P, acc);
-    }
-  } else {
-    for (long long e = threadIdx.x; e < len; e += kThreads) {
-      float acc = 0.f;
-      for (int src = 0; src < W; ++src) {
-        const float f = src == d ? tdt::to_f32(term(src)[e])
-                                 : tdt::vec::load_cg(term(src) + e);
-        acc = src == 0 ? f : acc + f;
-      }
-      to[e] = tdt::from_f32<T>(acc);
-    }
-  }
-}
+namespace os = tdt::oneshot;
+using os::kThreads;
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -186,14 +72,18 @@ __global__ void __launch_bounds__(kThreads)
       if (threadIdx.x == 0 && t == total + (int)gridDim.x - 1) *ticket = 0;
       return;
     }
-    const Item it = item_of(t, W, n_chunks);
+    const os::Item it = os::item_of(t, W, n_chunks);
     const long long e0 = (long long)it.c * chunk;
     const long long len = min(chunk, n - e0);
     uint32_t* chunk_flags = flags + (size_t)it.c * W;  // one per source
     if (it.push) {
       if (threadIdx.x == 0) lang::sleep_ns(delay_ns);
       __syncthreads();
-      push<T, VEC>(x, staging, n, e0, len, it.r, W);
+      const int src = it.r;
+      os::push<T, VEC>(x + (size_t)src * n + e0, len, W - 1, [&](int k) {
+        const int d = k + (k >= src);  // every peer but the source
+        return staging + ((size_t)d * (W - 1) + src - (src > d)) * n + e0;
+      });
       __syncthreads();  // every thread's stores precede the release
       if (threadIdx.x == 0) lang::notify(chunk_flags + it.r, epoch);
       continue;
@@ -205,7 +95,12 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     lang::consume_token();
-    fold<T, VEC>(x, staging, out, n, e0, len, it.r, W);
+    const int d = it.r;
+    os::fold<T, VEC>(out + (size_t)d * n + e0, len, W, d, [&](int src) {
+      return src == d
+                 ? x + (size_t)d * n + e0
+                 : staging + ((size_t)d * (W - 1) + src - (src > d)) * n + e0;
+    });
     // take_ticket starts at a barrier: nothing here is read again.
   }
 }
@@ -215,7 +110,7 @@ cudaError_t launch(const void* x, void* staging, void* out, void* flags,
                    void* ticket, unsigned epoch, long long n, long long chunk,
                    int world, unsigned long long delay_ns, cudaStream_t s) {
   using tdt::gemm::aligned16;
-  constexpr int P = Vec<T>::N;
+  constexpr int P = tdt::vec::Vec<T>::N;
   const long long n_chunks = (n + chunk - 1) / chunk;
   const bool vec = n % P == 0 && chunk % P == 0 && aligned16(x) &&
                    aligned16(out) && aligned16(staging);

@@ -82,10 +82,13 @@ SIGNATURES = {
                              I32, I32, U64, P],
     # c, a, b, out, s (nullable f32 scalar), s value, M, N, K, stream
     "tdt_fused_step": [P, P, P, P, P, F32, I64, I64, I64, P],
-    # x, staging (null at world 1), out, flags, ticket, epoch, n, chunk
-    # elements, world, dtype, producer delay (ns), stream
-    "tdt_oneshot_ar_loopback": [P, P, P, P, P, U32, I64, I64, I64, I32, U64,
-                                P],
+    # x, staging (null at world 1), out, flags, ticket (arrival cells), n,
+    # chunk elements, chunks, world, blocks
+    # (tdt_oneshot_ar_loopback_blocks), dtype, producer delay (ns), stream
+    "tdt_oneshot_ar_loopback": [P, P, P, P, P, I64, I64, I64, I64, I64, I32,
+                                U64, P],
+    # chunks, world, dtype, out: the persistent grid's block count (uint32)
+    "tdt_oneshot_ar_loopback_blocks": [I64, I64, I32, P],
     # sends, recvs (host arrays of device pointers), row bytes, piece rows
     # (host int64 arrays), n_payloads, send_counts, count cells,
     # recv_counts, flags, ticket, epoch, world, capacity, chunk rows, stream
@@ -133,9 +136,12 @@ SIGNATURES = {
     # tma (bf16: the wgmma tile), producer delay (ns), stream
     "tdt_group_gemm_rs": [P, P, P, P, P, P, P, U32, I64, I64, I64, I64, I64,
                           I32, I32, U64, P],
-    # x, out, flags, ticket, epoch, world, shard bytes, piece bytes,
-    # producer delay (ns), stream
-    "tdt_ring_ag": [P, P, P, P, U32, I64, I64, I64, U64, P],
+    # x, out, flags, ticket (arrival cells), world, shard bytes, piece
+    # bytes, pieces a shard, blocks (tdt_ring_ag_blocks), producer delay
+    # (ns), stream
+    "tdt_ring_ag": [P, P, P, P, I64, I64, I64, I64, I64, U64, P],
+    # world, pieces a shard, out: the persistent grid's block count (uint32)
+    "tdt_ring_ag_blocks": [I64, I64, P],
     # x, out, world, shard bytes, piece bytes, producer delay (ns), stream
     "tdt_a2a_ag": [P, P, I64, I64, I64, U64, P],
     # x, staging, out, flags, ticket, epoch (nullable int32 on the card),
@@ -244,6 +250,16 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
+
+
+def persistent_blocks(entry: str, device: torch.device, *args) -> int:
+    """The block count of a kernel's persistent grid, from its C entry
+    ``entry`` (``args``, then a pointer it writes the uint32 count to), on
+    ``device``: one occupancy query, which a caller's launch plan keeps."""
+    blocks = ctypes.c_uint(0)
+    with torch.cuda.device(device):
+        check(getattr(lib(), entry)(*args, ctypes.byref(blocks)), entry)
+    return blocks.value
 
 
 def stream_ptr(t) -> int:

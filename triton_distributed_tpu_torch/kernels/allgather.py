@@ -13,13 +13,18 @@ one plain version, ``all_gather_ref``, holds both. The host wrapper
 ``all_gather`` (:221) takes the stacked shards and returns the gathered
 ``(world * m, ...)``, by the method ``choose_all_gather_method`` (:62) picks
 from the perf model. One card stands in for the group: the pushes go
-through device memory, not NVLink. The 2-D exchange (a ``dcn_axis``) is
-not ported and raises ``NotImplementedError``; ``method="ring_2d"`` without
-one raises JAX's ``ValueError``.
+through device memory, not NVLink. A call allocates only its output and
+makes one device operation: the launch geometry is a plan cached per
+stacked shape, dtype and device (``ag_plan``), and the ring's ticket and
+flags are arrival cells (``_signal.arrivals``) that the kernel leaves at
+0. The 2-D exchange (a ``dcn_axis``) is not ported and raises
+``NotImplementedError``; ``method="ring_2d"`` without one raises JAX's
+``ValueError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import torch
@@ -37,8 +42,15 @@ A2A_AG = _build.register(
     "a2a_ag", "triton_distributed_tpu_torch/csrc/a2a_ag.cu",
     "triton_distributed_tpu/kernels/allgather.py:125")
 
-# Bytes one work item copies: a piece of one rank's shard.
+# Bytes one work item of the direct push copies: a piece of one rank's
+# shard.
 PIECE_BYTES = 16384
+# Bytes of one ring piece. The ring's time at a small shard is its world -
+# 1 dependent hops, each copying one piece; smaller pieces put more chains
+# in flight and make each hop's copy shorter, larger ones hand out fewer
+# tickets. RING_PIECE_SMALL up to RING_SMALL_SHARD bytes a shard (a decode
+# activation), RING_PIECE above it.
+RING_PIECE_SMALL, RING_PIECE, RING_SMALL_SHARD = 16384, 65536, 1 << 20
 
 
 class AllGatherMethod(enum.Enum):
@@ -79,37 +91,82 @@ def all_gather_ref(x: torch.Tensor) -> torch.Tensor:
     return flat.expand(world, *flat.shape[1:]).clone()
 
 
+def ring_piece(seg: int) -> int:
+    """Bytes of one piece of ``csrc/ring_ag.cu`` for a shard of ``seg``
+    bytes."""
+    return RING_PIECE_SMALL if seg <= RING_SMALL_SHARD else RING_PIECE
+
+
+@dataclasses.dataclass(frozen=True)
+class AGPlan:
+    """The launch geometry of the two allgathers for one stacked shape and
+    dtype on one device: the output's shape, the bytes of a shard, and the
+    ring's piece, pieces a shard, persistent grid (one occupancy query)
+    and flags (world x (world - 2) x pieces: steps 0 .. world - 3 raise
+    one a piece, the last step none). The direct push keeps its own
+    ``PIECE_BYTES`` and grid (``csrc/a2a_ag.cu``)."""
+
+    out_shape: tuple
+    seg: int
+    piece: int
+    n_pieces: int
+    blocks: int
+    n_flags: int
+
+
+_AG_PLANS: dict[tuple, AGPlan] = {}
+
+
+def ag_plan(x: torch.Tensor) -> AGPlan:
+    """The cached plan of a call on ``x`` (world, m, ...), made on first
+    use: the checks of the shape and one occupancy query."""
+    key = (x.shape, x.dtype, x.device)
+    plan = _AG_PLANS.get(key)
+    if plan is None:
+        world = x.shape[0]
+        _stacked("all_gather_cuda", x, world)
+        if world < 2:
+            raise ValueError("the allgather kernels take world >= 2 shards")
+        seg = x[0].numel() * x.element_size()
+        piece = ring_piece(seg)
+        n_pieces = -(-seg // piece)
+        blocks = _build.persistent_blocks("tdt_ring_ag_blocks", x.device,
+                                          world, n_pieces)
+        plan = _AG_PLANS[key] = AGPlan(
+            (world, world * x.shape[1], *x.shape[2:]), seg, piece, n_pieces,
+            blocks, world * (world - 2) * n_pieces)
+    return plan
+
+
 def _ag_cuda(name: str, kernel: _build.Kernel, x: torch.Tensor, out,
              producer_delay_ns: int) -> torch.Tensor:
-    """Launch one of the two allgather kernels on the current stream."""
-    world = x.shape[0]
-    _stacked(name, x, world)
-    if world < 2 or not x.is_cuda or not x.is_contiguous():
+    """Launch one of the two allgather kernels on the current stream: the
+    cached plan, the output, the stream and (for the ring) its arrival
+    cells, then one ``ctypes`` call."""
+    if not x.is_cuda or not x.is_contiguous():
         raise ValueError(f"{name} takes a contiguous CUDA tensor of world "
                          f">= 2 shards")
-    shape = (world, world * x.shape[1], *x.shape[2:])
+    plan = ag_plan(x)
     if out is None:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    elif (tuple(out.shape) != shape or out.dtype != x.dtype
+        out = torch.empty(plan.out_shape, dtype=x.dtype, device=x.device)
+    elif (out.shape != plan.out_shape or out.dtype != x.dtype
           or out.device != x.device or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous {shape} {x.dtype} "
-                         f"tensor on {x.device}")
-    seg = x[0].numel() * x.element_size()
+        raise ValueError(f"out must be a contiguous {plan.out_shape} "
+                         f"{x.dtype} tensor on {x.device}")
     stream = _build.stream_ptr(x)
     if kernel is RING_AG:
-        n_pieces = -(-seg // PIECE_BYTES)
-        flags = _signal.flags(x.device, kernel.name,
-                              world * (world - 1) * n_pieces)
-        ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+        # Cell 0 the ticket, cells 1 .. the flags.
+        cells = _signal.arrivals(x.device, kernel.name, 1 + plan.n_flags,
+                                 stream).data_ptr()
         err = _build.lib().tdt_ring_ag(
-            x.data_ptr(), out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
-            _signal.next_epoch(x.device), world, seg, PIECE_BYTES,
+            x.data_ptr(), out.data_ptr(), cells + 4, cells, x.shape[0],
+            plan.seg, plan.piece, plan.n_pieces, plan.blocks,
             producer_delay_ns, stream)
         _build.check(err, "tdt_ring_ag")
     else:
-        err = _build.lib().tdt_a2a_ag(x.data_ptr(), out.data_ptr(), world,
-                                      seg, PIECE_BYTES, producer_delay_ns,
-                                      stream)
+        err = _build.lib().tdt_a2a_ag(x.data_ptr(), out.data_ptr(),
+                                      x.shape[0], plan.seg, PIECE_BYTES,
+                                      producer_delay_ns, stream)
         _build.check(err, "tdt_a2a_ag")
     kernel.launches += 1
     return out

@@ -15,7 +15,8 @@ returns the reduced ``(m, ...)``, by the method ``choose_all_reduce_method``
 (:53) picks from the perf model. One card stands in for the group: the
 pushes go through device memory, not NVLink.
 
-``oneshot_ar_loopback`` (:174) runs on ``csrc/oneshot_ar_loopback.cu``:
+``oneshot_ar_loopback`` (:174) runs on ``csrc/oneshot_ar_loopback.cu``,
+the multi-rank one-shot's items with one owner whose every source is x:
 world - 1 simulated peers push this card's buffer into staging slots, each
 chunk flagged when it lands, and a fixed-order f32 fold returns ``world *
 x``. It prices the all-reduce machinery beside the small-M GEMMs of the ar
@@ -24,6 +25,7 @@ mode (``bench.py``'s M = 128 arm).
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import torch
@@ -36,9 +38,8 @@ ONESHOT_AR_LOOPBACK = _build.register(
     "triton_distributed_tpu_torch/csrc/oneshot_ar_loopback.cu",
     "triton_distributed_tpu/kernels/allreduce.py:158")
 
-# Bytes of x one producer item pushes (whole rows, at least one): at
-# bench.py's (128, 5,120) bf16 one row, so world 8 gives 896 pushes and 128
-# folds, about one wave of resident blocks.
+# Bytes of one piece of the two-shot all-reduce's and the reduce-scatters'
+# rings (whole rows, at least one: ``_chunk``).
 CHUNK_BYTES = 16384
 
 
@@ -109,15 +110,22 @@ def oneshot_all_reduce_ref(x: torch.Tensor) -> torch.Tensor:
 # four 16-byte vectors), one round a chunk until there would be more than
 # MAX_CHUNKS of them, then as many rounds a chunk as keep them at MAX_CHUNKS.
 ONESHOT_ROUND_BYTES = 16384
+# The loopback's chunks: whole units of this many bytes (two 16-byte vectors
+# a thread of its 256), by the same rule. Its one owner has one push and
+# one fold a chunk, so a chunk smaller than a round spreads a decode-sized
+# buffer over more blocks; 8 KB beat 4 and 16 KB at bench.py's shape.
+LOOPBACK_CHUNK_BYTES = 8192
 
 
-def oneshot_ar_plan(n: int, itemsize: int) -> tuple[int, int]:
+def oneshot_ar_plan(n: int, itemsize: int,
+                    unit: int = ONESHOT_ROUND_BYTES) -> tuple[int, int]:
     """``(chunk, n_chunks)`` of ``csrc/oneshot_ar.cu`` over n elements a
-    rank: a chunk is a whole number of 16 KB rounds (so a multiple of every
-    vector width), one round unless that gives more than MAX_CHUNKS
-    chunks; the chunks cover [0, n) once, the last one ragged."""
-    rounds = max(1, -(-n * itemsize // (ONESHOT_ROUND_BYTES * MAX_CHUNKS)))
-    chunk = rounds * ONESHOT_ROUND_BYTES // itemsize
+    rank: a chunk is a whole number of ``unit`` bytes (16 KB rounds; a
+    multiple of every vector width), one unit unless that gives more than
+    MAX_CHUNKS chunks; the chunks cover [0, n) once, the last one
+    ragged."""
+    units = max(1, -(-n * itemsize // (unit * MAX_CHUNKS)))
+    chunk = units * unit // itemsize
     return chunk, -(-n // chunk)
 
 
@@ -380,41 +388,98 @@ def oneshot_ar_loopback_ref(x: torch.Tensor, *,
     return acc.to(x.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class LoopbackPlan:
+    """The launch geometry of ``oneshot_ar_loopback_cuda`` for one shape,
+    dtype, device and world: the elements, the chunk and chunks
+    (``oneshot_ar_plan`` in units of LOOPBACK_CHUNK_BYTES), the staging's
+    shape, the persistent grid (one occupancy query) and the flags (world
+    - 1 a chunk)."""
+
+    n: int
+    chunk: int
+    n_chunks: int
+    staging_shape: tuple
+    blocks: int
+    n_flags: int
+
+
+_LOOPBACK_PLANS: dict[tuple, LoopbackPlan] = {}
+
+
+def loopback_plan(x: torch.Tensor, world: int) -> LoopbackPlan:
+    """The cached plan of a call on ``x`` at ``world``, made on first use:
+    the checks of the shape and dtype and one occupancy query."""
+    key = (x.shape, x.dtype, x.device, world)
+    plan = _LOOPBACK_PLANS.get(key)
+    if plan is None:
+        _check_world(world)
+        code = _build.dtype_code(x)
+        if x.dim() < 1 or x.numel() == 0:
+            raise ValueError("oneshot_ar_loopback_cuda takes a non-empty "
+                             f"(m, ...) tensor, got {tuple(x.shape)}")
+        n = x.numel()
+        chunk, n_chunks = oneshot_ar_plan(n, x.element_size(),
+                                          LOOPBACK_CHUNK_BYTES)
+        blocks = _build.persistent_blocks("tdt_oneshot_ar_loopback_blocks",
+                                          x.device, n_chunks, world, code)
+        plan = _LOOPBACK_PLANS[key] = LoopbackPlan(
+            n, chunk, n_chunks, (world - 1, *x.shape), blocks,
+            n_chunks * (world - 1))
+    return plan
+
+
+def loopback_staging(x: torch.Tensor, world: int,
+                     stream: int) -> torch.Tensor:
+    """The loopback's default staging for ``x``: a (world - 1, *x.shape)
+    view of the stream's persistent scratch (``runtime/symm.py``
+    ``get_scratch``, grown to the largest call), so a call allocates none;
+    its contents are the last call's pushes. The view is kept per shape on
+    the scratch itself (``views``)."""
+    ws = symm.get_scratch("oneshot_ar_loopback.staging", x.numel(), x.dtype,
+                          world=world - 1, device=x.device, stream=stream)
+    view = ws.views.get(x.shape)
+    if view is None:
+        view = ws.views[x.shape] = ws.array.view(-1)[
+            :(world - 1) * x.numel()].view(world - 1, *x.shape)
+    return view
+
+
 def oneshot_ar_loopback_cuda(x: torch.Tensor, *, world: int = 8,
                              staging: torch.Tensor | None = None,
                              producer_delay_ns: int = 0) -> torch.Tensor:
     """Launch ``csrc/oneshot_ar_loopback.cu`` on the current stream (f32 or
-    bf16, any trailing shape). ``staging`` (default: a new buffer of shape
-    (world - 1, *x.shape), discarded) and ``producer_delay_ns`` (every
-    producer item sleeps that long before its copy) let a test poison the
-    slots and hold the pushes back; the result must not change."""
-    _check_world(world)
-    if not x.is_cuda:
-        raise ValueError("oneshot_ar_loopback_cuda takes a CUDA tensor")
-    code = _build.dtype_code(x)
-    if not x.is_contiguous() or x.dim() < 1 or x.numel() == 0:
-        raise ValueError("oneshot_ar_loopback_cuda takes a contiguous, "
-                         f"non-empty (m, ...) tensor, got {tuple(x.shape)}")
-    shape = (world - 1, *x.shape)
-    if staging is None:
-        staging = torch.empty(shape, dtype=x.dtype, device=x.device)
-    elif (tuple(staging.shape) != shape or staging.dtype != x.dtype
+    bf16, any trailing shape). ``staging`` (default: the stream's
+    persistent scratch, ``loopback_staging``) and ``producer_delay_ns``
+    (every push sleeps that long before its copy) let a test poison the
+    slots and hold the pushes back; the result must not change. A call
+    allocates only its output and makes one device operation: the plan is
+    cached (``loopback_plan``), and the ticket and flags are arrival cells
+    the kernel leaves at 0."""
+    if not x.is_cuda or not x.is_contiguous():
+        raise ValueError("oneshot_ar_loopback_cuda takes a contiguous CUDA "
+                         "tensor")
+    plan = loopback_plan(x, world)
+    stream = _build.stream_ptr(x)
+    if world == 1:
+        st = None
+    elif staging is None:
+        st = loopback_staging(x, world, stream).data_ptr()
+    elif (staging.shape != plan.staging_shape or staging.dtype != x.dtype
           or staging.device != x.device or not staging.is_contiguous()):
-        raise ValueError(f"staging must be a contiguous {shape} "
-                         f"{x.dtype} tensor on {x.device}")
-    n = x.numel()
-    row = n // x.shape[0]
-    chunk = max(1, CHUNK_BYTES // (row * x.element_size())) * row
-    n_chunks = -(-n // chunk)
-    flags = _signal.flags(x.device, "oneshot_ar_loopback",
-                          n_chunks * (world - 1))
-    ticket = torch.empty(1, dtype=torch.int32, device=x.device)
+        raise ValueError(f"staging must be a contiguous "
+                         f"{plan.staging_shape} {x.dtype} tensor on "
+                         f"{x.device}")
+    else:
+        st = staging.data_ptr()
     out = torch.empty_like(x)
+    # Cell 0 the ticket, cells 1 .. the flags.
+    cells = _signal.arrivals(x.device, ONESHOT_AR_LOOPBACK.name,
+                             1 + plan.n_flags, stream).data_ptr()
     err = _build.lib().tdt_oneshot_ar_loopback(
-        x.data_ptr(), staging.data_ptr() if world > 1 else None,
-        out.data_ptr(), flags.data_ptr(), ticket.data_ptr(),
-        _signal.next_epoch(x.device), n, chunk, world, code,
-        producer_delay_ns, _build.stream_ptr(x))
+        x.data_ptr(), st, out.data_ptr(), cells + 4, cells, plan.n,
+        plan.chunk, plan.n_chunks, world, plan.blocks,
+        _build.DTYPE_CODES[x.dtype], producer_delay_ns, stream)
     _build.check(err, "tdt_oneshot_ar_loopback")
     ONESHOT_AR_LOOPBACK.launches += 1
     return out

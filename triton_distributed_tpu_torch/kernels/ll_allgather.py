@@ -30,7 +30,6 @@ persistent per-stream buffers (``_signal``) that the kernel leaves at 0.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -107,14 +106,11 @@ def ll_plan(x: torch.Tensor) -> LLPlan:
                              "world >= 2 shards")
         seg = x[0].numel() * x.element_size()
         n_pieces = -(-seg // PIECE_BYTES)
-        blocks = ctypes.c_uint(0)
-        with torch.cuda.device(x.device):
-            _build.check(_build.lib().tdt_ll_allgather_blocks(
-                world, n_pieces, ctypes.byref(blocks)),
-                "tdt_ll_allgather_blocks")
+        blocks = _build.persistent_blocks("tdt_ll_allgather_blocks",
+                                          x.device, world, n_pieces)
         plan = LLPlan((world, world * x.shape[1], *x.shape[2:]),
                       (world, 2, world - 1, *x.shape[1:]), seg, n_pieces,
-                      blocks.value, world * 2 * (world - 1) * n_pieces)
+                      blocks, world * 2 * (world - 1) * n_pieces)
         _LL_PLANS[key] = plan
     return plan
 

@@ -9,7 +9,7 @@ decode (L == 1), chunked prefill and ragged mixed steps.
 
 ``tuned_paged_tile`` and the analyzer registrations (:121-240, :636-828)
 are the TPU's tile tuning and VMEM analysis; the CUDA kernel's tiles are
-fixed, and neither is ported (ROADMAP.md Queue 1 items 9 and 12).
+fixed, and neither is ported (see ROADMAP.md).
 
 ``paged_attention`` takes CUDA tensors to the kernel and CPU tensors to the
 plain version ``paged_attention_ref``; a CUDA tensor the kernel does not

@@ -54,7 +54,7 @@ class EPAll2AllLayer:
         if self.dcn_axis is not None:
             raise NotImplementedError(
                 "the 2-D exchange over dcn_axis (fast_all_to_all_2d) is not "
-                "ported yet: ROADMAP.md Queue 2 row 18")
+                "ported yet: see ROADMAP.md")
 
     def ctx(self) -> AllToAllContext:
         return AllToAllContext(capacity=self.capacity, hidden=self.hidden,

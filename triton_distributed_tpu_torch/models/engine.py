@@ -125,8 +125,7 @@ class Engine:
         if self.world > 1:
             raise NotImplementedError(
                 "the block-paged serving step at world > 1 (BatchEngine over "
-                "simulated ranks) is not ported yet: ROADMAP.md Queue 1 "
-                "item 3")
+                "simulated ranks) is not ported yet: see ROADMAP.md")
         model, mode = self.model, self.mode
 
         @torch.inference_mode()

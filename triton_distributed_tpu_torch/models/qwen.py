@@ -308,8 +308,8 @@ class Qwen3:
             if block_tables is not None:
                 raise NotImplementedError(
                     "the block-paged serving step at world > 1 (BatchEngine "
-                    "over simulated ranks) is not ported yet: ROADMAP.md "
-                    "Queue 1 item 3")
+                    "over simulated ranks) is not ported yet: see "
+                    "ROADMAP.md")
         if return_moe_stats and (not c.n_experts or mode != "dist"):
             raise ValueError("return_moe_stats requires an MoE config in "
                              "mode='dist' (drops exist only on the dispatch "
